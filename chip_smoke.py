@@ -20,6 +20,40 @@ Phases, one line each (any failure raises and the exit code is non-zero):
                agree with the float64 scan engine on the first 256 samples
                outside the tie margin, and accuracy >= 0.9 against the
                planted truth.
+  3b. train kernels — the EM step kernel (int8 and bit-packed masks) and
+               the candidate-evaluation kernel against their plain PyTorch
+               versions on the same CUDA tensors: H 128..1024 (4096 for the
+               evaluation), A 4..128, C 1..64, with all-missing and
+               zero-weight samples, haplotypes dropped per candidate and two
+               candidates with the same genotype column (an exact tie),
+               at both training cells' step shapes (K=8, S=1,024, H=256,
+               C=17 and K=25, S=64, H=128, C=32; A=14), and a case of
+               untyped samples. EM outputs at rtol 1e-4; evaluation counts
+               exact and -2logLik at rtol 1e-4 (for the untyped case over
+               the samples whose true pair scores at least 2^-100, the
+               difference over all printed); each kernel run twice must
+               agree bitwise. The EM's packed and re-matched mask tiers
+               against its int8 tier through em_all_candidates. Then each
+               kernel timed beside its plain version at the mid-scale
+               cell's step shape.
+  5. train   — a seeded synthetic typed panel of 1,000 samples x 266 SNPs and
+               14 alleles, its haplotypes mosaics away from the middle SNP
+               (synthetic.PANEL_RECOMBINATION switches per Mb, which puts
+               the classifiers around hcap);
+               train_parallel(mode="fused", device="cuda") of 8
+               classifiers (hcap=256, max_steps=192, on_overflow="freeze",
+               mtry=17) twice, the second timed.
+               Checks that the EM and evaluation kernels ran, that the two
+               runs' classifiers are bitwise equal, frequencies sum to 1,
+               mean OOB accuracy >= 0.9, and that the model predicts 500
+               held-out samples at accuracy >= 0.9 through the ensemble
+               kernel. Prints the haplotype counts, the freeze re-seats and
+               how many classifiers an engine="torch" run on the card
+               agrees with.
+  6. packed  — the headline training shape: 60 samples (64 padded) x 1,000
+               SNPs, 25 classifiers, hcap=128, mtry=32, on a mosaic panel,
+               with a mask budget that puts the EM on the bit-packed tier;
+               checks that the packed kernel ran, and times a second run.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -165,6 +199,349 @@ def phase_kernel(dev, hap, g, w, A):
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
 
 
+def _train_case(rng, K, C, H, A, S, dev, n_sel=24, typed=True):
+    """Kernel inputs of the training step: haplotypes in frequency order
+    (alleles not grouped) with empty slots; samples 0 and 1 all-missing
+    (sample 0 with weight), sample 2 of weight 0; frequencies dropped per
+    candidate for the evaluation; candidate 1's genotype column and
+    frequencies equal candidate 0's. With ``typed`` the other samples carry
+    two of the first 16 haplotypes, which no candidate drops, as a training
+    panel does; else random codes, so that a sample's true pair can lie far
+    from its nearest pair and score in float32's denormal range (as after
+    erase_rare drops a sample's true haplotypes)."""
+    from hibag_tpu_torch.models.em import match_pairs, match_pairs_packed
+
+    L = 128
+    bits = np.zeros((K, H, L), np.float32)
+    bits[:, :, :n_sel] = rng.integers(0, 2, (K, H, n_sel))
+    freq = rng.random((K, H)).astype(np.float32)
+    freq[:, H - H // 8:] = 0.0
+    freq /= freq.sum(1, keepdims=True)
+    allele = rng.integers(0, A, (K, H)).astype(np.int32)
+    allele[:, :16] = allele[0, :16]
+    pair = rng.integers(0, 16, (2, S))
+    geno = np.full((K, S, L), 3, np.int8)
+    if typed:
+        geno[:, 3:, :n_sel] = (bits[:, pair[0, 3:], :n_sel]
+                               + bits[:, pair[1, 3:], :n_sel])
+    else:
+        geno[:, 3:, :n_sel] = rng.integers(0, 3, (K, S - 3, n_sel))
+    a12 = np.sort(allele[0][pair], 0).astype(np.int32)
+    B = rng.multinomial(S, np.ones(S) / S, size=K).astype(np.float32)
+    B[:, 0] = 1.0
+    B[:, 2] = 0.0
+    gc = rng.integers(0, 4, (K, C, S)).astype(np.int8)
+    gc[:, :, :2] = 3
+    valid = (freq > 0)[:, None, :]
+    fA = (np.abs(rng.normal(0, .1, (K, C, H))) * valid).astype(np.float32)
+    fB = (np.abs(rng.normal(0, .1, (K, C, H))) * valid).astype(np.float32)
+    drop = rng.random((2, K, C, H)) < 0.3
+    drop[..., :16] = False
+    fAe = np.where(drop[0], 0, fA).astype(np.float32)
+    fBe = np.where(drop[1], 0, fB).astype(np.float32)
+    if C > 1:
+        gc[:, 1] = gc[:, 0]
+        for x in (fA, fB, fAe, fBe):
+            x[:, 1] = x[:, 0]
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    c = dict(bits=t(bits), freq=t(freq), allele=t(allele), geno=t(geno),
+             a1=t(a12[0]), a2=t(a12[1]), B=t(B), gc=t(gc), fA=t(fA),
+             fB=t(fB), fAe=t(fAe), fBe=t(fBe), oob=t(B == 0), A=A)
+    args = (c["bits"], c["freq"] > 0, c["allele"], c["geno"], c["a1"],
+            c["a2"])
+    if H <= 1024:
+        c["mask"] = match_pairs(*args).to(torch.int8)
+        c["packed"] = match_pairs_packed(*args)
+    return c
+
+
+def _em_calls(c):
+    from hibag_tpu_torch.ops import train_step as ts
+    em = (c["fA"], c["fB"], c["mask"], c["gc"], c["B"], 1000.0)
+    pk = (c["fA"], c["fB"], c["packed"], c["gc"], c["B"], 1000.0)
+    return {"em_estep": (ts.em_estep, ts.em_estep_ref, em),
+            "em_estep_packed": (ts.em_estep_packed, ts.em_estep_packed_ref,
+                                pk)}
+
+
+def _eval_call(c):
+    from hibag_tpu_torch.ops import train_step as ts
+    args = (c["bits"], c["allele"], c["fAe"], c["fBe"], c["gc"], c["geno"],
+            c["a1"], c["a2"], c["oob"], c["B"], c["A"])
+    return ts.evaluate_candidates_kernel, ts.evaluate_candidates_ref, args
+
+
+def _check_train_kernel(name, kern, ref, args, label, check_ll=True):
+    """Runs `kern` twice and `ref` once on `args`: the two runs must agree
+    bitwise, EM outputs at rtol 1e-4, evaluation counts exactly (the tied
+    candidates 0 and 1 too) and, with `check_ll`, -2logLik at rtol 1e-4.
+    Returns the max abs error (of -2logLik when not checked: its max rel
+    error)."""
+    out = kern(*args)
+    out2 = kern(*args)
+    torch.cuda.synchronize()
+    want = ref(*args)
+    if not all(torch.equal(x, y) for x, y in zip(out, out2)):
+        raise AssertionError(f"{name} {label}: two runs differ")
+    if name != "evaluate_candidates_kernel":
+        return max(_close(f"{name} {label} output {i}", x, y, rtol=1e-4,
+                          atol=1e-9)[0]
+                   for i, (x, y) in enumerate(zip(out, want)))
+    if not torch.equal(out[0], want[0]):
+        raise AssertionError(f"{name} {label}: accuracy counts differ in "
+                             f"{int((out[0] != want[0]).sum())} places")
+    if out[0].shape[1] > 1 and not (torch.equal(out[0][:, 0], out[0][:, 1])
+                                    and torch.equal(out[1][:, 0],
+                                                    out[1][:, 1])):
+        raise AssertionError(f"{name} {label}: tied candidates differ")
+    if not check_ll:
+        rel = (out[1].double() - want[1].double()).abs() \
+            / want[1].double().abs().clamp_min(1e-30)
+        return rel.max().item()
+    return _close(f"{name} {label} ll", out[1], want[1], rtol=1e-4,
+                  atol=1e-6)[0]
+
+
+def _resolved(args):
+    """The evaluation's arguments with weight 0 on each sample whose true
+    pair scores below 2^-100 for some candidate in the plain version, and
+    the count of such weighted samples. Above 2^-100 every term of the
+    score is summed at float32's full precision; below, terms fall into the
+    denormal range, where the kernel's and the plain version's orders of
+    summation keep different bits."""
+    from hibag_tpu_torch.models import em
+
+    _, _, tq, _ = em.evaluate_candidates(*args, per_sample=True)
+    ok = (tq >= 2.0 ** -100).all(dim=1)
+    B = args[9]
+    return (*args[:9], B * ok, *args[10:]), int(((B > 0) & ~ok).sum())
+
+
+def _check_em_tiers(dev):
+    """em_all_candidates through the EM kernels on the three mask tiers of
+    one problem: H=248 slots (padded to 256 for the kernel) and S=160
+    samples, so that the re-matched tier runs the int8 kernel on three
+    sample chunks. The packed and re-matched tiers must agree with the int8
+    tier at rtol 1e-4, and the re-matched tier with itself bitwise. Returns
+    the largest absolute difference."""
+    from hibag_tpu_torch.models.em import em_all_candidates
+    from hibag_tpu_torch.ops import train_step as ts
+
+    K, C, H, S = 2, 17, 248, 160
+    c = _train_case(np.random.default_rng(SEED + 5), K, C, H, 14, S, dev)
+    afreq = torch.from_numpy(np.random.default_rng(SEED + 6).uniform(
+        0.1, 0.9, (K, C)).astype(np.float32)).to(dev)
+    run = lambda budget: em_all_candidates(
+        c["freq"], c["freq"] > 0, c["bits"], c["allele"], c["geno"],
+        c["a1"], c["a2"], c["B"], c["gc"], afreq, float(S),
+        mask_budget=budget, engine="cuda")
+    before = dict(ts.LAUNCHES)
+    int8 = run(None)
+    packed = run(S * 256 * 32)
+    remat, remat2 = run(0), run(0)
+    torch.cuda.synchronize()
+    launched = {k: ts.LAUNCHES[k] - before[k] for k in before}
+    if launched["em_estep_packed"] < 1:
+        raise AssertionError("the packed tier did not launch its kernel")
+    if launched["em_estep"] < int(int8[3].max()) + 3 * int(remat[3].max()):
+        raise AssertionError("the re-matched tier did not launch the EM "
+                             "kernel once per sample chunk")
+    if not all(torch.equal(x, y) for x, y in zip(remat, remat2)):
+        raise AssertionError("the re-matched tier differs run to run")
+    worst = 0.0
+    for tier, got in (("packed", packed), ("remat", remat)):
+        for i, (x, y) in enumerate(zip(got[:3], int8[:3])):
+            worst = max(worst, _close(f"EM {tier} tier output {i}", x, y,
+                                      rtol=1e-4, atol=1e-9)[0])
+    print(f"[train-kernel] EM tiers at K={K} C={C} H={H} S={S}: packed and "
+          f"re-matched (3 chunks) agree with int8, max abs {worst:.3e}; "
+          f"iterations int8 {int8[3].tolist()} packed {packed[3].tolist()} "
+          f"re-matched {remat[3].tolist()}; re-matched bitwise "
+          "deterministic")
+    return worst
+
+
+def phase_train_kernels(dev):
+    """Phase 3b; returns {name: {"max_abs_err", "ms", "plain_ms"}}."""
+    rng = np.random.default_rng(SEED + 3)
+    err = {"em_estep": 0.0, "em_estep_packed": 0.0,
+           "evaluate_candidates_kernel": 0.0}
+    # the last case is the headline training cell's step (K=25, S=64,
+    # H=128, C=32, A=14); the slice's own is compared below, where timed
+    cases = [(1, 1, 128, 4, 96), (2, 17, 256, 14, 128),
+             (2, 32, 640, 14, 64), (1, 64, 1024, 128, 32),
+             (2, 17, 256, 128, 64), (1, 17, 4096, 4, 16),
+             (25, 32, 128, 14, 64)]
+    for K, C, H, A, S in cases:
+        c = _train_case(rng, K, C, H, A, S, dev)
+        calls = dict(_em_calls(c)) if "mask" in c else {}
+        calls["evaluate_candidates_kernel"] = _eval_call(c)
+        label = f"K={K} C={C} H={H} A={A} S={S}"
+        for name, (kern, ref, args) in calls.items():
+            e = _check_train_kernel(name, kern, ref, args, label)
+            err[name] = max(err[name], e)
+            print(f"[train-kernel] {name} {label}: bitwise deterministic, "
+                  f"max abs err {e:.3e}")
+
+    # untyped samples: counts exact; -2logLik over the resolved samples
+    c = _train_case(rng, 2, 17, 256, 14, 128, dev, typed=False)
+    kern, ref, args = _eval_call(c)
+    label = "K=2 C=17 H=256 A=14 S=128 untyped"
+    for name, call in _em_calls(c).items():
+        err[name] = max(err[name], _check_train_kernel(name, *call, label))
+    rel = _check_train_kernel("evaluate_candidates_kernel", kern, ref, args,
+                              label, check_ll=False)
+    rargs, n_unres = _resolved(args)
+    e = _check_train_kernel("evaluate_candidates_kernel", kern, ref, rargs,
+                            label + " resolved")
+    err["evaluate_candidates_kernel"] = max(err["evaluate_candidates_kernel"],
+                                            e)
+    print(f"[train-kernel] evaluate_candidates_kernel {label}: counts exact; "
+          f"-2logLik over the {n_unres} weighted samples whose true pair "
+          f"scores below 2^-100 too differs by max rel {rel:.3e}; without "
+          f"them max abs err {e:.3e}")
+    _check_em_tiers(dev)
+
+    # at the training slice's shape
+    c = _train_case(rng, 8, 17, 256, 14, 1024, dev, n_sel=16)
+    calls = dict(_em_calls(c))
+    calls["evaluate_candidates_kernel"] = _eval_call(c)
+    label = "K=8 C=17 H=256 A=14 S=1024"
+    timing = {}
+    for name, (kern, ref, args) in calls.items():
+        e = _check_train_kernel(name, kern, ref, args, label)
+        err[name] = max(err[name], e)
+        ms = _cuda_ms(lambda: kern(*args), 10)
+        plain_ms = _cuda_ms(lambda: ref(*args), 3)
+        timing[name] = {"max_abs_err": err[name], "ms": ms,
+                        "plain_ms": plain_ms}
+        print(f"[train-kernel] {name} {label}: bitwise deterministic, max "
+              f"abs err {e:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return timing
+
+
+def _same_classifiers(m1, m2):
+    return sum(np.array_equal(a.snp_index, b.snp_index)
+               and np.array_equal(a.hap_bits, b.hap_bits)
+               and np.array_equal(a.hap_freq, b.hap_freq)
+               and np.array_equal(a.hap_allele, b.hap_allele)
+               for a, b in zip(m1.classifiers, m2.classifiers))
+
+
+def phase_train(card):
+    """Phase 5; returns the main path's kernel launches."""
+    from hibag_tpu_torch import predict, train_parallel
+    from hibag_tpu_torch.models import train_fused
+    from hibag_tpu_torch.ops import ens_acc
+    from hibag_tpu_torch.ops import train_step as ts
+    from hibag_tpu_torch.utils.synthetic import (PANEL_RECOMBINATION,
+                                                 synthetic_panel)
+
+    (table, geno), (htable, hgeno) = synthetic_panel(
+        SEED, 1000, 266, 14, n_held_out=500,
+        recombination=PANEL_RECOMBINATION)
+    kw = dict(n_classifiers=8, batch=8, seed=100, verbose=False,
+              with_matching=False, mode="fused", hcap=256, max_steps=192,
+              on_overflow="freeze", device="cuda")
+    first = train_parallel(table, geno, **kw)
+    torch.cuda.synchronize()
+    steps, reseats = [0], [0]
+    step, reseat = train_fused._step, train_fused._freeze_reseat
+
+    def counted(*a, **k):
+        steps[0] += 1
+        return step(*a, **k)
+
+    def counted_reseat(state, idx, new_hc):
+        reseats[0] += int(idx.shape[0])
+        return reseat(state, idx, new_hc)
+
+    train_fused._step = counted
+    train_fused._freeze_reseat = counted_reseat
+    for k in ts.LAUNCHES:
+        ts.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    model = train_parallel(table, geno, **kw)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(ts.LAUNCHES)
+    train_fused._step, train_fused._freeze_reseat = step, reseat
+    for name in ("em_estep", "evaluate_candidates_kernel"):
+        if launches[name] < 1:
+            raise AssertionError(f"training did not launch {name}")
+    same = _same_classifiers(first, model)
+    if same != 8:
+        raise AssertionError(f"two trainings differ: {8 - same}/8 "
+                             "classifiers not bitwise equal")
+    for c in model.classifiers:
+        if abs(c.hap_freq.sum() - 1.0) > 1e-2:
+            raise AssertionError(f"hap_freq sums to {c.hap_freq.sum()}")
+    oob = float(np.mean([c.oob_accuracy for c in model.classifiers]))
+    if oob < 0.9:
+        raise AssertionError(f"mean OOB accuracy {oob:.4f} < 0.9")
+
+    ens_acc.LAUNCHES = 0
+    res = predict(model, hgeno, device="cuda")
+    torch.cuda.synchronize()
+    if ens_acc.LAUNCHES < 1:
+        raise AssertionError("held-out predict did not launch ens_acc")
+    acc = res.accuracy_vs(htable.allele1, htable.allele2)
+    if acc < 0.9:
+        raise AssertionError(f"held-out accuracy {acc:.4f} < 0.9")
+
+    plain = train_parallel(table, geno, engine="torch", **kw)
+    same_seq = sum(np.array_equal(a.snp_index, b.snp_index)
+                   for a, b in zip(model.classifiers, plain.classifiers))
+    n_snp = [c.n_snp for c in model.classifiers]
+    n_hap = [c.n_haplo for c in model.classifiers]
+    print(f"[train] N=1000 P=266 A=14 K=8 hcap=256 mtry=17: "
+          f"{8 / elapsed:.4f} classifiers/s ({elapsed:.3f} s), {steps[0]} "
+          f"growth steps, EM kernel launches {launches['em_estep']} "
+          f"({launches['em_estep'] / max(steps[0], 1):.2f} per step), eval "
+          f"launches {launches['evaluate_candidates_kernel']}; runs bitwise "
+          f"equal 8/8; mean OOB {oob:.4f}; held-out accuracy {acc:.4f} "
+          f"(500 samples); SNPs {n_snp}, haplotypes {n_hap}, freeze "
+          f"re-seats {reseats[0]}; same SNP "
+          f"sequence as engine='torch' on the card: {same_seq}/8 | {card}")
+    return launches
+
+
+def phase_packed(card):
+    """Phase 6; returns the packed kernel's launches."""
+    from hibag_tpu_torch import train_parallel
+    from hibag_tpu_torch.ops import train_step as ts
+    from hibag_tpu_torch.utils.synthetic import (PANEL_RECOMBINATION,
+                                                 synthetic_panel)
+
+    (table, geno), _ = synthetic_panel(SEED + 2, 60, 1000, 14,
+                                       recombination=PANEL_RECOMBINATION)
+    # int8 mask 64*128*128 B = 1 MiB > 256 KiB >= packed 128 KiB
+    kw = dict(n_classifiers=25, batch=25, seed=100, verbose=False,
+              with_matching=False, mode="fused", hcap=128, max_steps=192,
+              on_overflow="freeze", device="cuda", mask_budget=256 * 1024)
+    train_parallel(table, geno, **kw)
+    torch.cuda.synchronize()
+    for k in ts.LAUNCHES:
+        ts.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    model = train_parallel(table, geno, **kw)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = ts.LAUNCHES["em_estep_packed"]
+    if launches < 1:
+        raise AssertionError("the packed tier did not launch em_estep_packed")
+    oob = float(np.mean([c.oob_accuracy for c in model.classifiers]))
+    n_hap = [c.n_haplo for c in model.classifiers]
+    # a classifier re-seated above 128 slots outgrows the budget's packed
+    # mask too and takes the re-matched tier (the int8 kernel per chunk)
+    print(f"[packed] N=60 P=1000 A=14 K=25 hcap=128 mtry=32: "
+          f"{25 / elapsed:.4f} classifiers/s ({elapsed:.3f} s), packed EM "
+          f"launches {launches}, int8 EM launches {ts.LAUNCHES['em_estep']}, "
+          f"mean OOB {oob:.4f}, haplotypes {min(n_hap)}..{max(n_hap)} "
+          f"(mean {np.mean(n_hap):.1f}) | {card}")
+    return launches
+
+
 def main():
     dev, card = phase_device()
     phase_build()
@@ -236,11 +613,25 @@ def main():
           f"{launches}, f64 calls equal on {int(clear.sum())}/{N_F64} "
           f"clear samples | {card}")
 
-    print(json.dumps({"kernels": [{
-        "name": "ens_acc", "route": "cuda",
-        "source": "hibag_tpu_torch/csrc/ens_acc.cu",
-        "replaces": "hibag_tpu/ops/scoring_pallas.py:140",
-        "launches": launches, **timing}]}))
+    train_timing = phase_train_kernels(dev)
+    train_launches = phase_train(card)
+    train_launches["em_estep_packed"] = phase_packed(card)
+
+    kernels = [{"name": "ens_acc", "route": "cuda",
+                "source": "hibag_tpu_torch/csrc/ens_acc.cu",
+                "replaces": "hibag_tpu/ops/scoring_pallas.py:140",
+                "launches": launches, **timing}]
+    for name, src, line in (
+            ("em_estep", "em_estep.cu", "hibag_tpu/ops/train_step_pallas.py:91"),
+            ("em_estep_packed", "em_estep.cu",
+             "hibag_tpu/ops/train_step_pallas.py:173"),
+            ("evaluate_candidates_kernel", "eval_cand.cu",
+             "hibag_tpu/ops/train_step_pallas.py:416")):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"hibag_tpu_torch/csrc/{src}",
+                        "replaces": line, "launches": train_launches[name],
+                        **train_timing[name]})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

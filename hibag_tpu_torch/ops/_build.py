@@ -1,10 +1,11 @@
 """Builds the port's CUDA sources (``hibag_tpu_torch/csrc/*.cu``) with nvcc at
 first use and loads the shared library with ctypes.
 
-The library goes to ``build/hibag_tpu_torch/`` at the root of the checkout,
-named by a hash of the sources and flags, so an edited source builds anew
-and an unchanged one loads the library already there. A missing nvcc or a
-failed build raises.
+Each source compiles to an object file in its own nvcc process, all started
+together, and one more nvcc links them. The library goes to
+``build/hibag_tpu_torch/`` at the root of the checkout, named by a hash of
+the sources and flags, so an edited source builds anew and an unchanged one
+loads the library already there. A missing nvcc or a failed build raises.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "hibag_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 
 def find_nvcc() -> str:
@@ -60,12 +61,28 @@ def build() -> str:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     srcs = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    nvcc = find_nvcc()
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", o, s]
+            for s, o in zip(srcs, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(cmd)}\n{log}")
+    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
                            f"\n{proc.stdout}\n{proc.stderr}")
+    with open(os.path.join(BUILD_DIR, "ptxas.log"), "w") as f:
+        f.write("\n".join(logs))
+    for o in objs:
+        os.remove(o)
     os.replace(tmp, out)
     return out
 
@@ -77,6 +94,12 @@ def load() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.hibag_ens_acc.argtypes = [p] * 10 + [i] * 5 + [p]
     lib.hibag_ens_acc.restype = i
+    lib.hibag_em_estep.argtypes = [p] * 10 + [i] * 6 + [ctypes.c_float, p]
+    lib.hibag_em_estep.restype = i
+    lib.hibag_eval_cand.argtypes = [p] * 15 + [i] * 6 + [p]
+    lib.hibag_eval_cand.restype = i
+    lib.hibag_eval_smem.argtypes = [i] * 3
+    lib.hibag_eval_smem.restype = ctypes.c_longlong
     lib.hibag_cuda_error_string.argtypes = [i]
     lib.hibag_cuda_error_string.restype = ctypes.c_char_p
     return lib

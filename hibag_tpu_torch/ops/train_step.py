@@ -1,0 +1,278 @@
+"""The training step's kernels: wrappers of csrc/em_estep.cu and
+csrc/eval_cand.cu, each beside its plain PyTorch version.
+
+Counterparts of hibag_tpu/ops/train_step_pallas.py:
+* `em_estep` — `em_estep_pallas` (_em_kernel): one E+M step for all
+  candidates from the int8 matched-pair mask [K, S, H, H];
+* `em_estep_packed` — `em_estep_pallas_packed` (_em_kernel_packed): the same
+  from the bit-packed mask [K, S, H, H // 8] in _pack_mask's layout;
+* `evaluate_candidates_kernel` — `evaluate_candidates_pallas`
+  (_eval_kernel): OOB accuracy counts and in-bag -2logLik.
+
+On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
+it runs the plain version (`*_ref`), which is models/em.py's arithmetic.
+Both kernels are deterministic: the same inputs give bitwise the same
+outputs (no float atomics).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..constants import LOG_MIN_RARE_FREQ, MAXNUM_SNP
+from ..models import em
+
+#: the EM kernel's limits: H a multiple of EM_H_MULTIPLE up to EM_MAX_H,
+#: and 1..MAX_C candidates
+EM_MAX_H = 4096
+EM_H_MULTIPLE = 32
+#: the evaluation kernel's limits: haplotype slots, alleles
+EVAL_MAX_H = 4096
+EVAL_MAX_A = 128
+#: most candidates either kernel takes
+MAX_C = 64
+#: shared memory the evaluation kernel may ask for (of the 227 KB a block
+#: can have on the H100)
+EVAL_SMEM_BYTES = 200 * 1024
+#: sample groups of the EM kernel: a block owns a run of samples, the
+#: number of runs depends on S only
+EM_MAX_GROUPS = 64
+EM_GROUP_SAMPLES = 16
+
+#: kernel launches made by each wrapper; never the plain versions'
+LAUNCHES = {"em_estep": 0, "em_estep_packed": 0,
+            "evaluate_candidates_kernel": 0}
+
+
+def _same_device(*xs):
+    dev = xs[0].device
+    if any(x.device != dev for x in xs):
+        raise ValueError("all inputs must be on one device")
+    if not all(x.is_contiguous() for x in xs):
+        raise ValueError("all inputs must be contiguous")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _raise_if_failed(lib, err, what):
+    if err != 0:
+        msg = lib.hibag_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
+
+
+# ---------------------------------------------------------------------------
+# EM E+M step
+# ---------------------------------------------------------------------------
+
+def _check_em(fA, fB, mask, gc, B, packed):
+    if fA.dtype != torch.float32 or fB.dtype != torch.float32 \
+            or fA.dim() != 3 or fB.shape != fA.shape:
+        raise ValueError("fA and fB must be float32 [K, C, H]")
+    K, C, H = fA.shape
+    if not 1 <= C <= MAX_C:
+        raise ValueError(f"{C} candidates: the EM kernel takes 1..MAX_C="
+                         f"{MAX_C}")
+    if H % EM_H_MULTIPLE or not 0 < H <= EM_MAX_H:
+        raise ValueError(f"H={H}: the EM kernel takes multiples of "
+                         f"EM_H_MULTIPLE={EM_H_MULTIPLE} up to EM_MAX_H="
+                         f"{EM_MAX_H}")
+    want = (torch.uint8, H // 8) if packed else (torch.int8, H)
+    if mask.dim() != 4 or mask.dtype != want[0] or mask.shape[0] != K \
+            or tuple(mask.shape[2:]) != (H, want[1]):
+        raise ValueError(f"mask must be {want[0]} [K={K}, S, {H}, {want[1]}],"
+                         f" got {mask.dtype} {tuple(mask.shape)}")
+    S = mask.shape[1]
+    if gc.dtype != torch.int8 or tuple(gc.shape) != (K, C, S):
+        raise ValueError(f"g_cand must be int8 [{K}, {C}, {S}]")
+    if B.dtype != torch.float32 or tuple(B.shape) != (K, S):
+        raise ValueError(f"B must be float32 [{K}, {S}]")
+    dev = _same_device(fA, fB, mask, gc, B)
+    if dev.type == "cuda" and mask.data_ptr() % 16:
+        raise ValueError("mask must be 16-byte aligned")
+    return K, C, H, S
+
+
+def _em_launch(fA, fB, mask, gc, B, total_n, packed):
+    from . import _build
+
+    K, C, H = fA.shape
+    S = mask.shape[1]
+    dev = fA.device
+    dfA = torch.empty_like(fA)
+    dfB = torch.empty_like(fB)
+    dll = torch.empty((K, C), dtype=torch.float32, device=dev)
+    G = max(1, min(EM_MAX_GROUPS, -(-S // EM_GROUP_SAMPLES)))
+    part = torch.empty((K, G, 2, C, H), dtype=torch.float32, device=dev)
+    dllp = torch.empty((K, G, C), dtype=torch.float32, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        err = lib.hibag_em_estep(
+            mask.data_ptr(), fA.data_ptr(), fB.data_ptr(), gc.data_ptr(),
+            B.data_ptr(), part.data_ptr(), dllp.data_ptr(), dfA.data_ptr(),
+            dfB.data_ptr(), dll.data_ptr(), K, S, H, C, G, int(packed),
+            float(total_n), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_if_failed(lib, err, "EM")
+    return dfA, dfB, dll
+
+
+def em_estep(fA, fB, mask, g_cand, B, total_n):
+    """One E+M step for all candidates of K classifiers from the int8
+    matched-pair mask: fA/fB float32 [K, C, H]; mask int8 [K, S, H, H];
+    g_cand int8 [K, C, S] the candidates' genotype codes; B float32 [K, S]
+    bootstrap counts; total_n the sample count. Returns (dfA, dfB
+    [K, C, H], dll [K, C])."""
+    _check_em(fA, fB, mask, g_cand, B, packed=False)
+    if fA.device.type == "cpu":
+        return em_estep_ref(fA, fB, mask, g_cand, B, total_n)
+    out = _em_launch(fA, fB, mask, g_cand, B, total_n, packed=False)
+    LAUNCHES["em_estep"] += 1
+    return out
+
+
+def em_estep_packed(fA, fB, packed, g_cand, B, total_n):
+    """`em_estep` from the bit-packed mask uint8 [K, S, H, H // 8] (bit b of
+    byte k is column 8k + b)."""
+    _check_em(fA, fB, packed, g_cand, B, packed=True)
+    if fA.device.type == "cpu":
+        return em_estep_packed_ref(fA, fB, packed, g_cand, B, total_n)
+    out = _em_launch(fA, fB, packed, g_cand, B, total_n, packed=True)
+    LAUNCHES["em_estep_packed"] += 1
+    return out
+
+
+def em_estep_ref(fA, fB, mask, g_cand, B, total_n):
+    """Plain PyTorch version of `em_estep`."""
+    m = em._geno_sel_masks(g_cand, fA.dtype)
+    return em.em_estep_masked(fA, fB, mask, B, m, total_n)
+
+
+def em_estep_packed_ref(fA, fB, packed, g_cand, B, total_n):
+    """Plain PyTorch version of `em_estep_packed`."""
+    m = em._geno_sel_masks(g_cand, fA.dtype)
+    return em.em_estep_packed(fA, fB, packed, B, m, total_n)
+
+
+# ---------------------------------------------------------------------------
+# candidate evaluation
+# ---------------------------------------------------------------------------
+
+def pen_table(device) -> torch.Tensor:
+    """float32 [257]: exp(log(1e-5) * d), made on `device` by the same
+    float32 exp as the plain version's penalties (so the kernel's penalty
+    for a distance is bitwise the plain version's)."""
+    d = torch.arange(2 * MAXNUM_SNP + 1, dtype=torch.float32, device=device)
+    return torch.exp(LOG_MIN_RARE_FREQ * d)
+
+
+def _check_eval(bits, allele, fA, fB, g_cand, geno_sel, a1, a2, is_oob, B,
+                n_alleles):
+    if fA.dtype != torch.float32 or fA.dim() != 3 or fB.shape != fA.shape \
+            or fB.dtype != torch.float32:
+        raise ValueError("fA and fB must be float32 [K, C, H]")
+    K, C, H = fA.shape
+    N = geno_sel.shape[1]
+    if not 1 <= C <= MAX_C:
+        raise ValueError(f"{C} candidates: the evaluation kernel takes "
+                         f"1..MAX_C={MAX_C}")
+    if H > EVAL_MAX_H:
+        raise ValueError(f"H={H} exceeds the evaluation kernel's limit "
+                         f"EVAL_MAX_H={EVAL_MAX_H}")
+    if not 1 <= n_alleles <= EVAL_MAX_A:
+        raise ValueError(f"{n_alleles} alleles: the evaluation kernel takes "
+                         f"1..EVAL_MAX_A={EVAL_MAX_A}")
+    if bits.dtype != torch.float32 or tuple(bits.shape) != (K, H, MAXNUM_SNP):
+        raise ValueError(f"bits must be float32 [{K}, {H}, {MAXNUM_SNP}]")
+    if tuple(allele.shape) != (K, H) or allele.dtype not in (torch.int32,
+                                                             torch.int64):
+        raise ValueError(f"allele must be int32 or int64 [{K}, {H}]")
+    if geno_sel.dtype != torch.int8 or tuple(geno_sel.shape) != (
+            K, N, MAXNUM_SNP):
+        raise ValueError(f"geno_sel must be int8 [{K}, N, {MAXNUM_SNP}]")
+    if g_cand.dtype != torch.int8 or tuple(g_cand.shape) != (K, C, N):
+        raise ValueError(f"g_cand must be int8 [{K}, {C}, {N}]")
+    if a1.dtype != torch.int32 or a2.dtype != torch.int32 \
+            or tuple(a1.shape) != (N,) or tuple(a2.shape) != (N,):
+        raise ValueError(f"a1 and a2 must be int32 [{N}]")
+    if is_oob.dtype != torch.bool or tuple(is_oob.shape) != (K, N):
+        raise ValueError(f"is_oob must be bool [{K}, {N}]")
+    if B.dtype != torch.float32 or tuple(B.shape) != (K, N):
+        raise ValueError(f"B must be float32 [{K}, {N}]")
+    _same_device(bits, allele, fA, fB, g_cand, geno_sel, a1, a2, is_oob, B)
+
+
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """float32 {0,1} [..., 128] -> int32 [..., 4]: bit l of SNP slot l in
+    word l // 32 (the layout of ops/ens_acc.py)."""
+    b = bits.reshape(*bits.shape[:-1], 4, 32).to(torch.int64)
+    sh = torch.arange(32, dtype=torch.int64, device=bits.device)
+    w = (b << sh).sum(-1)
+    return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)
+
+
+def evaluate_candidates_kernel(bits, allele, fA, fB, g_cand, geno_sel, a1,
+                               a2, is_oob, B, n_alleles):
+    """OOB accuracy count and in-bag -2logLik of every candidate of K
+    classifiers; the arguments and results of models.em.evaluate_candidates
+    (bits float32 [K, H, 128], allele [K, H], fA/fB float32 [K, C, H],
+    g_cand int8 [K, C, N], geno_sel int8 [K, N, 128], a1/a2 int32 [N],
+    is_oob bool [K, N], B float32 [K, N]) -> (acc int32 [K, C], ll float32
+    [K, C])."""
+    _check_eval(bits, allele, fA, fB, g_cand, geno_sel, a1, a2, is_oob, B,
+                n_alleles)
+    if fA.device.type == "cpu":
+        return evaluate_candidates_ref(bits, allele, fA, fB, g_cand,
+                                       geno_sel, a1, a2, is_oob, B,
+                                       n_alleles)
+    from . import _build
+
+    K, C, H = fA.shape
+    N = geno_sel.shape[1]
+    A = n_alleles
+    dev = fA.device
+    lib = _build.load()
+    ncell = A * (A + 1) // 2
+    fixed = int(lib.hibag_eval_smem(H, A, 0))
+    Cg = min(C, (EVAL_SMEM_BYTES - fixed) // (4 * ncell))
+    if Cg < 1:
+        raise ValueError(f"H={H} and A={A} leave no shared memory for one "
+                         f"candidate's grid (EVAL_SMEM_BYTES="
+                         f"{EVAL_SMEM_BYTES})")
+    # ok haplotypes first, grouped by allele in a stable order
+    ok = ((fA > 0) | (fB > 0)).any(dim=1)
+    key = torch.where(ok, allele.to(torch.int64), A)
+    order = torch.sort(key, dim=1, stable=True).indices
+    counts = torch.zeros((K, A + 1), dtype=torch.int64, device=dev)
+    counts.scatter_add_(1, key, torch.ones_like(key))
+    aoff = torch.zeros((K, A + 1), dtype=torch.int32, device=dev)
+    aoff[:, 1:] = counts[:, :A].cumsum(1).to(torch.int32)
+    hb = pack_bits(bits.gather(1, order[..., None].expand(-1, -1,
+                                                          MAXNUM_SNP)))
+    idx = order[:, None, :].expand(-1, C, -1)
+    fA_s = fA.gather(2, idx).contiguous()
+    fB_s = fB.gather(2, idx).contiguous()
+    oob = is_oob.to(torch.uint8)
+    accp = torch.empty((K, C, N), dtype=torch.int32, device=dev)
+    llp = torch.empty((K, C, N), dtype=torch.float32, device=dev)
+    acc = torch.empty((K, C), dtype=torch.int32, device=dev)
+    ll = torch.empty((K, C), dtype=torch.float32, device=dev)
+    if N == 0:
+        return acc.zero_(), ll.zero_()
+    tab = pen_table(dev)
+    with torch.cuda.device(dev):
+        err = lib.hibag_eval_cand(
+            hb.data_ptr(), fA_s.data_ptr(), fB_s.data_ptr(), aoff.data_ptr(),
+            g_cand.data_ptr(), geno_sel.data_ptr(), a1.data_ptr(),
+            a2.data_ptr(), oob.data_ptr(), B.data_ptr(), tab.data_ptr(),
+            accp.data_ptr(), llp.data_ptr(), acc.data_ptr(), ll.data_ptr(),
+            K, H, N, C, A, Cg, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_if_failed(lib, err, "evaluation")
+    LAUNCHES["evaluate_candidates_kernel"] += 1
+    return acc, ll
+
+
+def evaluate_candidates_ref(bits, allele, fA, fB, g_cand, geno_sel, a1, a2,
+                            is_oob, B, n_alleles):
+    """Plain PyTorch version of `evaluate_candidates_kernel`."""
+    return em.evaluate_candidates(bits, allele, fA, fB, g_cand, geno_sel, a1,
+                                  a2, is_oob, B, n_alleles)

@@ -1,4 +1,6 @@
-"""The CUDA ensemble kernel against its plain PyTorch version, on a card.
+"""The CUDA kernels against their plain PyTorch versions, on a card: the
+ensemble kernel (ops/ens_acc.py) and the training-step kernels
+(ops/train_step.py), and fused training through them.
 
 Imports neither jax nor hibag_tpu, so that on a machine with a card and no
 jax it runs as
@@ -14,7 +16,9 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from hibag_tpu_torch.ops import ens_acc
+from hibag_tpu_torch.ops import train_step as ts
 
 
 @pytest.fixture(autouse=True)
@@ -105,3 +109,105 @@ def test_kernel_edge_shapes(cuda, A):
         assert torch.equal(dmin, dmin_r)
         torch.testing.assert_close(total, total_r, rtol=3e-4, atol=0)
         torch.testing.assert_close(ens, ens_r, rtol=3e-4, atol=1e-7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,C,H,A,S", [(1, 1, 128, 4, 40), (2, 17, 256, 14, 96),
+                                       (1, 64, 640, 128, 24)])
+def test_train_step_kernels_match_plain_versions(cuda, K, C, H, A, S):
+    """chip_smoke.py's phase-3b cases: EM outputs at rtol 1e-4, counts
+    exact, -2logLik at rtol 1e-4, bitwise equal run to run, one launch
+    counted per call."""
+    c = chip_smoke._train_case(np.random.default_rng(K + C + H), K, C, H,
+                               A, S, cuda)
+    calls = chip_smoke._em_calls(c)
+    calls["evaluate_candidates_kernel"] = chip_smoke._eval_call(c)
+    for name, (fn, ref, args) in calls.items():
+        before = ts.LAUNCHES[name]
+        out, out2 = fn(*args), fn(*args)
+        torch.cuda.synchronize()
+        assert ts.LAUNCHES[name] == before + 2
+        assert all(torch.equal(x, y) for x, y in zip(out, out2))
+        want = ref(*args)
+        if name == "evaluate_candidates_kernel":
+            assert torch.equal(out[0], want[0])
+            torch.testing.assert_close(out[1], want[1], rtol=1e-4,
+                                       atol=1e-6)
+            if C > 1:
+                assert torch.equal(out[0][:, 0], out[0][:, 1])
+        else:
+            for x, y in zip(out, want):
+                torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-9)
+
+
+@pytest.mark.gpu
+def test_em_mask_tiers_agree(cuda):
+    """The EM's packed and re-matched (three sample chunks through the int8
+    kernel, slots padded from 248 to 256) mask tiers against its int8 tier
+    through em_all_candidates: rtol 1e-4, the re-matched tier bitwise equal
+    run to run (chip_smoke.py's check)."""
+    assert chip_smoke._check_em_tiers(cuda) < 1e-3
+
+
+@pytest.mark.gpu
+def test_eval_kernel_on_untyped_samples(cuda):
+    """Untyped samples: counts exact; -2logLik at rtol 1e-4 over the samples
+    whose true pair scores at least 2^-100 (chip_smoke.py's rule)."""
+    c = chip_smoke._train_case(np.random.default_rng(9), 2, 17, 256, 14, 128,
+                               cuda, typed=False)
+    kern, ref, args = chip_smoke._eval_call(c)
+    rargs, n_unresolved = chip_smoke._resolved(args)
+    assert n_unresolved < int((args[9] > 0).sum())
+    chip_smoke._check_train_kernel("evaluate_candidates_kernel", kern, ref,
+                                   args, "untyped", check_ll=False)
+    chip_smoke._check_train_kernel("evaluate_candidates_kernel", kern, ref,
+                                   rargs, "untyped, resolved")
+
+
+@pytest.mark.gpu
+def test_train_step_kernels_raise_on_bad_input(cuda):
+    c = chip_smoke._train_case(np.random.default_rng(3), 1, 4, 64, 6, 16,
+                               cuda)
+    em = chip_smoke._em_calls(c)["em_estep"][2]
+    with pytest.raises(ValueError, match="one device"):
+        ts.em_estep(em[0], em[1], em[2].cpu(), *em[3:])
+    with pytest.raises(ValueError, match="EM_H_MULTIPLE"):
+        ts.em_estep(em[0][..., :48].contiguous(), em[1][..., :48]
+                    .contiguous(), em[2][:, :, :48, :48].contiguous(),
+                    *em[3:])
+    ev = chip_smoke._eval_call(c)[2]
+    with pytest.raises(ValueError, match="one device"):
+        ts.evaluate_candidates_kernel(*ev[:6], ev[6].cpu(), *ev[7:])
+
+
+@pytest.mark.gpu
+def test_fused_training_on_the_card(cuda):
+    """A small fused training through the kernels: deterministic, launches
+    both step kernels, and trains a taggable panel well; hcap=24 is not a
+    multiple of 32 and overflows into freeze resumes."""
+    from hibag_tpu_torch import predict, train_parallel
+    from hibag_tpu_torch.utils.synthetic import synthetic_panel
+
+    (table, geno), (ht, hg) = synthetic_panel(2, 200, 80, 8, n_held_out=60)
+    kw = dict(n_classifiers=4, batch=4, seed=1, verbose=False, hcap=24,
+              max_steps=60, on_overflow="freeze", with_matching=False,
+              device="cuda")
+    before = dict(ts.LAUNCHES)
+    m1 = train_parallel(table, geno, **kw)
+    m2 = train_parallel(table, geno, **kw)
+    assert ts.LAUNCHES["em_estep"] > before["em_estep"]
+    assert (ts.LAUNCHES["evaluate_candidates_kernel"]
+            > before["evaluate_candidates_kernel"])
+    for a, b in zip(m1.classifiers, m2.classifiers):
+        assert np.array_equal(a.snp_index, b.snp_index)
+        assert np.array_equal(a.hap_freq, b.hap_freq)
+        assert np.array_equal(a.hap_bits, b.hap_bits)
+    assert np.mean([c.oob_accuracy for c in m1.classifiers]) > 0.9
+    assert predict(m1, hg, device="cuda").accuracy_vs(ht.allele1,
+                                                      ht.allele2) > 0.9
+    # the kernels' sums do not depend on the slot capacity, so freezing
+    # and resuming at a larger one equals retraining there from scratch
+    retry = train_parallel(table, geno, **dict(kw, on_overflow="retry"))
+    for a, b in zip(m1.classifiers, retry.classifiers):
+        assert np.array_equal(a.snp_index, b.snp_index)
+        assert np.array_equal(a.hap_freq, b.hap_freq)

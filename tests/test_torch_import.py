@@ -23,7 +23,8 @@ def _no_env_overrides(monkeypatch):
 def test_import_leaves_jax_out():
     # a fresh interpreter: this process already imported jax (conftest.py)
     code = ("import sys, hibag_tpu_torch, hibag_tpu_torch.models.predict, "
-            "hibag_tpu_torch.utils.synthetic; "
+            "hibag_tpu_torch.models.train, hibag_tpu_torch.models.convert, "
+            "hibag_tpu_torch.ops.train_step, hibag_tpu_torch.utils.synthetic; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'hibag_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -1,0 +1,214 @@
+"""The training-step kernels' plain versions (hibag_tpu_torch.ops.train_step)
+held against hibag_tpu's TPU kernels run in Pallas interpret mode, as
+tests/test_step_pallas.py runs them, and the wrappers' checks. The CUDA
+kernels themselves run only on a card (tests/test_torch_gpu.py)."""
+
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hibag_tpu.models.em import _geno_sel_masks, match_pairs, \
+    match_pairs_packed
+from hibag_tpu.ops import train_step_pallas as tpu
+from hibag_tpu_torch.ops import train_step as ts
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True)
+def _no_env_overrides(monkeypatch):
+    for k in list(os.environ):
+        if k.startswith("HIBAG_TPU_"):
+            monkeypatch.delenv(k)
+
+
+def _rand_problem(seed=0, N=24, H=128, L=128, Cm=9, A=6):
+    """tests/test_step_pallas.py::_rand_problem."""
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 2, (H, L)).astype(np.float32)
+    freq = rng.random(H).astype(np.float32)
+    freq[40:] = 0
+    freq /= freq.sum()
+    allele = np.sort(rng.integers(0, A, H)).astype(np.int32)
+    geno_sel = rng.integers(0, 4, (N, L)).astype(np.int8)
+    a12 = np.sort(rng.integers(0, A, (2, N)), 0).astype(np.int32)
+    B = rng.multinomial(N, np.ones(N) / N).astype(np.float32)
+    g_cand = rng.integers(0, 4, (Cm, N)).astype(np.int8)
+    fA = (np.abs(rng.normal(0, .1, (Cm, H))) * (freq > 0)).astype(np.float32)
+    fB = (np.abs(rng.normal(0, .1, (Cm, H))) * (freq > 0)).astype(np.float32)
+    return bits, freq, allele, geno_sel, a12, B, g_cand, fA, fB, A
+
+
+def _t(x):
+    """numpy -> torch with a leading classifier axis of 1."""
+    return torch.from_numpy(np.ascontiguousarray(x))[None]
+
+
+def _masks(bits, freq, allele, geno_sel, a12):
+    args = (jnp.asarray(bits), jnp.asarray(freq > 0), jnp.asarray(allele),
+            jnp.asarray(geno_sel), jnp.asarray(a12[0]), jnp.asarray(a12[1]))
+    return match_pairs(*args), match_pairs_packed(*args)
+
+
+@pytest.mark.parametrize("N", [24, 80])
+def test_em_estep_plain_matches_em_kernel(N):
+    # N=80 pads to two of the TPU kernel's sample chunks
+    bits, freq, allele, geno_sel, a12, B, g_cand, fA, fB, A = \
+        _rand_problem(N=N)
+    Cm = fA.shape[0]
+    mask, _ = _masks(bits, freq, allele, geno_sel, a12)
+    m = _geno_sel_masks(jnp.asarray(g_cand), jnp.float32)
+    Bj = jnp.asarray(B)
+    maskT, m3, B2, cp = tpu.em_prepare_pallas(mask, m, Bj, Cm)
+    fa_p, fb_p = tpu.em_pad_candidates(jnp.asarray(fA), jnp.asarray(fB), cp)
+    want = tpu.em_estep_pallas(fa_p, fb_p, maskT, m3, B2, 24.0,
+                               interpret=True)
+    before = dict(ts.LAUNCHES)
+    got = ts.em_estep(_t(fA), _t(fB), _t(np.asarray(mask).astype(np.int8)),
+                      _t(g_cand), _t(B), 24.0)
+    assert ts.LAUNCHES == before   # the CPU runs the plain version
+    np.testing.assert_allclose(got[0][0].numpy(), np.asarray(want[0][:Cm]),
+                               rtol=1e-4, atol=1e-9)
+    np.testing.assert_allclose(got[1][0].numpy(), np.asarray(want[1][:Cm]),
+                               rtol=1e-4, atol=1e-9)
+    np.testing.assert_allclose(got[2][0].numpy(), np.asarray(want[2][:Cm, 0]),
+                               rtol=1e-4)
+
+
+def test_em_estep_packed_plain_matches_packed_kernel():
+    bits, freq, allele, geno_sel, a12, B, g_cand, fA, fB, A = \
+        _rand_problem(seed=4)
+    Cm, H = fA.shape
+    _, packed = _masks(bits, freq, allele, geno_sel, a12)
+    m = _geno_sel_masks(jnp.asarray(g_cand), jnp.float32)
+    packedT, m3, B2, cp = tpu.em_prepare_packed_pallas(
+        packed, m, jnp.asarray(B), Cm, H)
+    fa_p, fb_p = tpu.em_pad_candidates(jnp.asarray(fA), jnp.asarray(fB), cp)
+    want = tpu.em_estep_pallas_packed(fa_p, fb_p, packedT, m3, B2, 24.0,
+                                      interpret=True)
+    got = ts.em_estep_packed(_t(fA), _t(fB), _t(np.asarray(packed)),
+                             _t(g_cand), _t(B), 24.0)
+    np.testing.assert_allclose(got[0][0].numpy(), np.asarray(want[0][:Cm]),
+                               rtol=1e-4, atol=1e-9)
+    np.testing.assert_allclose(got[1][0].numpy(), np.asarray(want[1][:Cm]),
+                               rtol=1e-4, atol=1e-9)
+    np.testing.assert_allclose(got[2][0].numpy(), np.asarray(want[2][:Cm, 0]),
+                               rtol=1e-4)
+
+
+@pytest.fixture
+def flush_denormals():
+    """XLA on the CPU flushes float32 denormals; PyTorch on the CPU does so
+    only when asked (tests/test_torch_em.py::flush_denormals)."""
+    assert torch.set_flush_denormal(True)
+    yield
+    torch.set_flush_denormal(False)
+
+
+@pytest.mark.parametrize("seed,N,H,drop", [(1, 24, 128, 0.3),
+                                           (7, 16, 640, 0.0)])
+def test_evaluate_plain_matches_eval_kernel(seed, N, H, drop,
+                                            flush_denormals):
+    """The cases of tests/test_step_pallas.py (test_eval_kernel_matches_jnp
+    and test_eval_kernel_h640)."""
+    rng = np.random.default_rng(seed)
+    bits, freq, allele, geno_sel, a12, B, g_cand, fA, fB, A = \
+        _rand_problem(seed=seed, N=N, H=H)
+    fA = np.where(rng.random(fA.shape) < drop, 0, fA).astype(np.float32)
+    fB = np.where(rng.random(fB.shape) < drop, 0, fB).astype(np.float32)
+    is_oob = B == 0
+    acc_p, ll_p = tpu.evaluate_candidates_pallas(
+        jnp.asarray(bits), jnp.asarray(allele), jnp.asarray(fA),
+        jnp.asarray(fB), jnp.asarray(g_cand), jnp.asarray(geno_sel),
+        jnp.asarray(a12[0]), jnp.asarray(a12[1]), jnp.asarray(is_oob),
+        jnp.asarray(B), A, interpret=True)
+    before = dict(ts.LAUNCHES)
+    acc, ll = ts.evaluate_candidates_kernel(
+        _t(bits), _t(allele), _t(fA), _t(fB), _t(g_cand), _t(geno_sel),
+        torch.from_numpy(a12[0].copy()), torch.from_numpy(a12[1].copy()),
+        _t(is_oob), _t(B), A)
+    assert ts.LAUNCHES == before
+    np.testing.assert_array_equal(acc[0].numpy(), np.asarray(acc_p))
+    np.testing.assert_allclose(ll[0].numpy(), np.asarray(ll_p), rtol=1e-4)
+
+
+def test_pen_table_is_the_plain_penalty():
+    from hibag_tpu_torch.constants import LOG_MIN_RARE_FREQ
+    tab = ts.pen_table(torch.device("cpu"))
+    d = torch.arange(257, dtype=torch.float32)
+    assert torch.equal(tab, torch.exp(LOG_MIN_RARE_FREQ * d))
+    assert tab[0] == 1 and tab[256] == 0
+
+
+def test_pack_bits_layout():
+    rng = np.random.default_rng(2)
+    bits = rng.integers(0, 2, (3, 5, 128)).astype(np.float32)
+    words = ts.pack_bits(torch.from_numpy(bits)).numpy().view(np.uint32)
+    for w in range(4):
+        want = (bits[..., 32 * w:32 * (w + 1)].astype(np.uint64)
+                << np.arange(32, dtype=np.uint64)).sum(-1)
+        np.testing.assert_array_equal(words[..., w], want)
+
+
+def _em_args(K=1, C=3, H=64, S=8, packed=False):
+    fA = torch.rand(K, C, H)
+    mask = (torch.zeros(K, S, H, H // 8, dtype=torch.uint8) if packed
+            else torch.zeros(K, S, H, H, dtype=torch.int8))
+    return [fA, fA.clone(), mask, torch.zeros(K, C, S, dtype=torch.int8),
+            torch.ones(K, S), 8.0]
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_em_wrapper_raises_on_what_the_kernel_does_not_take(packed):
+    fn = ts.em_estep_packed if packed else ts.em_estep
+    fn(*_em_args(packed=packed))          # a shape it takes
+    with pytest.raises(ValueError, match="MAX_C"):
+        fn(*_em_args(C=ts.MAX_C + 1, packed=packed))
+    with pytest.raises(ValueError, match="EM_H_MULTIPLE"):
+        fn(*_em_args(H=48, packed=packed))
+    with pytest.raises(ValueError, match="EM_MAX_H"):
+        fn(*_em_args(H=ts.EM_MAX_H + 32, S=1, packed=packed))
+    bad = _em_args(packed=packed)
+    bad[2] = bad[2].to(torch.int16)
+    with pytest.raises(ValueError, match="mask"):
+        fn(*bad)
+    bad = _em_args(packed=packed)
+    bad[4] = bad[4].double()
+    with pytest.raises(ValueError, match="B must be"):
+        fn(*bad)
+    bad = _em_args(packed=packed)
+    bad[0] = bad[0].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(*bad)
+
+
+def _eval_args(K=1, C=3, H=64, N=8, A=6):
+    L = 128
+    return [torch.zeros(K, H, L), torch.zeros(K, H, dtype=torch.int32),
+            torch.rand(K, C, H), torch.rand(K, C, H),
+            torch.zeros(K, C, N, dtype=torch.int8),
+            torch.full((K, N, L), 3, dtype=torch.int8),
+            torch.zeros(N, dtype=torch.int32), torch.zeros(N, dtype=torch.int32),
+            torch.zeros(K, N, dtype=torch.bool), torch.ones(K, N), A]
+
+
+def test_eval_wrapper_raises_on_what_the_kernel_does_not_take():
+    ts.evaluate_candidates_kernel(*_eval_args())
+    with pytest.raises(ValueError, match="MAX_C"):
+        ts.evaluate_candidates_kernel(*_eval_args(C=ts.MAX_C + 1))
+    with pytest.raises(ValueError, match="EVAL_MAX_A"):
+        ts.evaluate_candidates_kernel(*_eval_args(A=ts.EVAL_MAX_A + 1))
+    with pytest.raises(ValueError, match="EVAL_MAX_H"):
+        ts.evaluate_candidates_kernel(*_eval_args(H=ts.EVAL_MAX_H + 1, N=1,
+                                                  C=1))
+    bad = _eval_args()
+    bad[6] = bad[6].long()
+    with pytest.raises(ValueError, match="a1 and a2"):
+        ts.evaluate_candidates_kernel(*bad)
+    bad = _eval_args()
+    bad[8] = bad[8].to(torch.uint8)
+    with pytest.raises(ValueError, match="is_oob"):
+        ts.evaluate_candidates_kernel(*bad)
