@@ -54,10 +54,31 @@ Phases, one line each (any failure raises and the exit code is non-zero):
                SNPs, 25 classifiers, hcap=128, mtry=32, on a mosaic panel,
                with a mask budget that puts the EM on the bit-packed tier;
                checks that the packed kernel ran, and times a second run.
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.
+  7. wide    — the scoring kernel (through ensemble_scores, and through
+               posterior_scores_kernel, its call at one classifier) against
+               its plain PyTorch version on the same CUDA tensors: H
+               64..4,096, A 1..1,024, C 1 and 8, with padded slots,
+               all-missing samples, a forced exact tie and a case of ordered
+               pairs within and across alleles; dmin exact, S and total at
+               rtol 2e-4 and atol 1e-30, two runs bitwise equal. Then a
+               seeded synthetic model at the published HLA-A model's width
+               (100 classifiers, 1,000 SNPs) with 160 alleles and 600-1,600
+               haplotypes per classifier, wider than the ensemble kernel
+               takes, saved to .npz and loaded back; the kernel timed at the
+               scan engine's chunk shape (SCAN_CCHUNK classifiers) and at one
+               classifier beside its plain version; predict(device="cuda")
+               on 1,024 samples twice, the second timed. Checks that the
+               scoring kernel ran in the timed run and the ensemble kernel
+               did not, accuracy >= 0.9, sane probabilities and matching, and
+               calls equal to the float64 scan engine on the first 64 samples
+               outside the tie margin.
+The line before the last is the kernels' JSON record (each kernel's
+launches on its phase's timed main-path run, with the counts set to 0 just
+before it; its time and its plain version's; its bound from this run's
+inputs); the last line is {"ok": true, "device": {...}}.
 """
 
+import functools
 import json
 import os
 import subprocess
@@ -71,8 +92,20 @@ import torch
 SEED = 0
 N_SLICE = 3840
 N_F64 = 256
+N_WIDE = 1024
+N_WIDE_F64 = 64
 RTOL = 3e-4
 ATOL = 1e-7
+#: the scoring kernel's tolerance (tests/test_pallas.py:33-38)
+SCORE_RTOL, SCORE_ATOL = 2e-4, 1e-30
+
+#: H100 SXM data sheet: device-memory rate and float32 rate outside the
+#: tensor cores
+MEM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+#: 32-bit population counts per clock per SM at compute capability 9.0
+#: (CUDA C++ Programming Guide, arithmetic instruction throughput)
+POPC_PER_CLOCK_SM = 16
 
 
 def _close(name, got, want, rtol=RTOL, atol=ATOL):
@@ -85,6 +118,53 @@ def _close(name, got, want, rtol=RTOL, atol=ATOL):
         raise AssertionError(f"{name}: {int(bad.sum())} entries differ, max "
                              f"abs {err.max().item():.3e}")
     return err.max().item(), rel.max().item()
+
+
+@functools.cache
+def _popc_rate():
+    """(popcounts per second, SMs, max SM clock in MHz) of the current card:
+    POPC_PER_CLOCK_SM x its SM count x nvidia-smi's clocks.max.sm."""
+    dev = torch.cuda.current_device()
+    clk = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.splitlines()[dev])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return sms * POPC_PER_CLOCK_SM * clk * 1e6, sms, clk
+
+
+def _bound(nbytes, popc=0.0, flops=0.0):
+    """The least time the card could take: the larger of `nbytes` over the
+    memory rate and the operations over their peak rates (popcounts, float32
+    operations), and which of the two bounds it."""
+    t_bytes = nbytes / MEM_BYTES_PER_S
+    t_ops = max(popc / _popc_rate()[0], flops / F32_FLOP_PER_S)
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _pairs(nh, n):
+    """Unordered pairs of valid haplotypes, n * sum over classifiers of
+    m(m+1)/2 for m = nh[c]: the pair distances a scoring function needs."""
+    m = nh.double()
+    return n * float((m * (m + 1) / 2).sum())
+
+
+def _pair_popc(nh, g):
+    """Popcounts the pair distances need: for classifier c and sample n, one
+    per unordered pair of c's nh[c] valid haplotypes and 32-slot word of
+    g[c, n] (codes int8 [C, N, 128]) that holds a heterozygous code. A
+    pair's distance is a_i + a_j + popc(~(h_i ^ h_j) & het) over the words,
+    and a word without a heterozygous code adds 0: slots past a classifier's
+    SNPs hold code 3."""
+    het = (g.reshape(*g.shape[:-1], -1, 32) == 1).any(-1).sum(-1)
+    m = nh.double()
+    return float(((m * (m + 1) / 2)[:, None] * het.double()).sum())
+
+
+def _hap_bytes(hap):
+    return 4 * (hap.hb.numel() + hap.freq.numel() + hap.allele.numel()
+                + hap.nh.numel())
 
 
 def _cuda_ms(fn, reps):
@@ -113,8 +193,12 @@ def phase_device():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     card = smi.splitlines()[dev.index]
+    popc, sms, clk = _popc_rate()
     print(f"[device] {torch.cuda.get_device_name(dev)} | nvidia-smi: {card} "
-          f"| torch {torch.__version__} cuda {torch.version.cuda}")
+          f"| torch {torch.__version__} cuda {torch.version.cuda} | bound "
+          f"rates: memory {MEM_BYTES_PER_S:.3e} B/s, float32 "
+          f"{F32_FLOP_PER_S:.3e} FLOP/s, popcount {popc:.4e}/s ({sms} "
+          f"SMs x {POPC_PER_CLOCK_SM} x {clk:.0f} MHz)")
     print(card)
     return dev, card
 
@@ -192,11 +276,15 @@ def phase_kernel(dev, hap, g, w, A):
     max_abs, max_rel = _close("slice shape ens", ens, ens_r)
     ms = _cuda_ms(lambda: ensemble_accumulate(hap, g, w, A), 10)
     plain_ms = _cuda_ms(lambda: ensemble_accumulate_ref(hap, g, w, A), 3)
-    C, H = hap.n_classifiers, hap.n_slots
-    print(f"[kernel] slice shape C={C} N={g.shape[1]} H={H} A={A}: ens max "
+    C, H, N = hap.n_classifiers, hap.n_slots, int(g.shape[1])
+    bound = _bound(_hap_bytes(hap) + g.numel() + 4 * w.numel()
+                   + 4 * N * A * A + 8 * C * N, popc=_pair_popc(hap.nh, g),
+                   flops=2 * _pairs(hap.nh, N))
+    print(f"[kernel] slice shape C={C} N={N} H={H} A={A}: ens max "
           f"abs {max_abs:.3e} rel {max_rel:.3e}, run-to-run max abs "
-          f"{spread:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+          f"{spread:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, **bound}
 
 
 def _train_case(rng, K, C, H, A, S, dev, n_sel=24, typed=True):
@@ -413,11 +501,39 @@ def phase_train_kernels(dev):
         err[name] = max(err[name], e)
         ms = _cuda_ms(lambda: kern(*args), 10)
         plain_ms = _cuda_ms(lambda: ref(*args), 3)
+        bound = _train_bound(name, c)
         timing[name] = {"max_abs_err": err[name], "ms": ms,
-                        "plain_ms": plain_ms}
+                        "plain_ms": plain_ms, **bound}
         print(f"[train-kernel] {name} {label}: bitwise deterministic, max "
-              f"abs err {e:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+              f"abs err {e:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
     return timing
+
+
+def _train_bound(name, c):
+    """_bound of a training kernel on _train_case's inputs c. EM: the mask
+    (int8, or 1 bit a pair packed) and frequencies in, dfA, dfB and dll out;
+    per candidate 2 adds per set mask entry and 16 float operations per
+    active row (one with a set entry) of a sample. Evaluation: _pair_popc's
+    popcounts over the ok haplotypes, and 12 float operations per such pair,
+    sample and candidate."""
+    K, C, H = c["fA"].shape
+    N = c["geno"].shape[1]
+    if name.startswith("em_estep"):
+        mask = c["mask"] != 0
+        nnz = float(mask.sum())
+        rows = float(mask.any(-1).sum())
+        mbytes = mask.numel() // (8 if name == "em_estep_packed" else 1)
+        nbytes = (mbytes + 4 * 4 * K * C * H + c["gc"].numel()
+                  + 4 * c["B"].numel() + 4 * K * C)
+        return _bound(nbytes, flops=C * (2 * nnz + 16 * rows))
+    ok = ((c["fAe"] > 0) | (c["fBe"] > 0)).any(dim=1)
+    pairs = _pairs(ok.sum(1), N)
+    nbytes = (4 * c["bits"].numel() + 4 * c["allele"].numel()
+              + 8 * K * C * H + c["gc"].numel() + c["geno"].numel()
+              + 8 * N + c["oob"].numel() + 4 * c["B"].numel() + 8 * K * C)
+    return _bound(nbytes, popc=_pair_popc(ok.sum(1), c["geno"]),
+                  flops=12 * C * pairs)
 
 
 def _same_classifiers(m1, m2):
@@ -542,6 +658,225 @@ def phase_packed(card):
     return launches
 
 
+def _ordered_pair_case(dev):
+    """Two haplotypes of allele 0, one of allele 1 and a padded slot, and
+    three samples (the first all missing, the second haplotypes 0 + 2): the
+    PackedHaplotypes, codes g int8 [1, 3, 128] and the float64 sum over
+    ordered pairs want [1, 3, 3, 3] (allele 2 holds no haplotype). A kernel
+    that walks pairs i <= j must add a cross pair to both S[0,1] and S[1,0],
+    the pair within allele 0 twice to S[0,0], and each i == j once."""
+    from hibag_tpu_torch.ops.ens_acc import pack_haplotypes
+
+    rng = np.random.default_rng(SEED + 9)
+    bits = np.zeros((1, 4, 128), np.uint8)
+    bits[0, :, :12] = rng.integers(0, 2, (4, 12))
+    freq = np.array([[0.5, 0.3, 0.2, 0.0]])
+    allele = np.array([[0, 0, 1, 2]])
+    g = np.full((1, 3, 128), 3, np.int8)
+    g[0, 1, :12] = bits[0, 0, :12] + bits[0, 2, :12]
+    g[0, 2, :12] = rng.integers(0, 3, 12)
+    b = bits[0].astype(np.int64)
+    want = np.zeros((1, 3, 3, 3))
+    for n in range(3):
+        obs = g[0, n] <= 2
+        D = np.array([[np.abs(b[i] + b[j] - g[0, n])[obs].sum()
+                       for j in range(3)] for i in range(3)])
+        for i in range(3):
+            for j in range(3):
+                want[0, n, allele[0, i], allele[0, j]] += (
+                    freq[0, i] * freq[0, j] * 1e-5 ** (D[i, j] - D.min()))
+    hap = pack_haplotypes(bits, freq, allele, 3, dev)
+    return hap, torch.from_numpy(g).to(dev), want
+
+
+def _score_case(rng, C, H, A, N, dev):
+    """Scoring-kernel inputs (hap, g) and whether classifier 0 forces the
+    exact tie S[2][0,2] == S[2][1,2]: _case's inputs for A >= 4 (N >= 4),
+    else
+    random haplotypes over A alleles with padded slots and all-missing
+    samples 0 and 1."""
+    from hibag_tpu_torch.ops.ens_acc import pack_haplotypes
+
+    if A >= 4:
+        hap, g, _ = _case(rng, C, H, A, N, dev)
+        return hap, g, True
+    bits = rng.integers(0, 2, (C, H, 128), dtype=np.uint8)
+    freq = rng.dirichlet(np.ones(H), C)
+    freq[:, H - H // 8:] = 0.0
+    allele = np.sort(rng.integers(0, A, (C, H)), axis=1)
+    g = rng.integers(0, 4, (C, N, 128)).astype(np.int8)
+    g[:, :2] = 3
+    return (pack_haplotypes(bits, freq, allele, A, dev),
+            torch.from_numpy(g).to(dev), False)
+
+
+def _check_scores(hap, g, A, label, tie=False):
+    """The scoring kernel twice and its plain version once on (hap, g):
+    posterior_scores_kernel for one classifier, else ensemble_scores. The
+    two runs must agree bitwise, dmin exactly, S must be exactly symmetric,
+    S and total at SCORE_RTOL and SCORE_ATOL; with `tie`, S[0,2][0,2] ==
+    S[0,2][1,2]. Returns the max abs error of S."""
+    from hibag_tpu_torch.ops import post_scores as ps
+
+    if hap.n_classifiers == 1:
+        def run():
+            return tuple(x[None] for x in ps.posterior_scores_kernel(
+                hap, g[0], A))
+    else:
+        def run():
+            return ps.ensemble_scores(hap, g, A)
+    out, out2 = run(), run()
+    torch.cuda.synchronize()
+    want = ps.ensemble_scores_ref(hap, g, A)
+    if not all(torch.equal(x, y) for x, y in zip(out, out2)):
+        raise AssertionError(f"{label}: two runs differ")
+    if not torch.equal(out[1], want[1]):
+        raise AssertionError(f"{label}: dmin differs")
+    if not torch.equal(out[0], out[0].transpose(-1, -2)):
+        raise AssertionError(f"{label}: S is not symmetric")
+    _close(f"{label} total", out[2], want[2], SCORE_RTOL, SCORE_ATOL)
+    err = _close(f"{label} S", out[0], want[0], SCORE_RTOL, SCORE_ATOL)[0]
+    if tie and not (out[0][0, 2, 0, 2] == out[0][0, 2, 1, 2] > 0):
+        raise AssertionError(f"{label}: the forced tie is not exact")
+    return err
+
+
+def _scores_bound(hap, g, A):
+    """_bound of one scoring launch: haplotypes and codes in, S, dmin and
+    total out; _pair_popc's popcounts, and a multiply-add per unordered
+    valid pair per sample."""
+    C, N = hap.n_classifiers, int(g.shape[1])
+    return _bound(_hap_bytes(hap) + g.numel() + 4 * C * N * A * A
+                  + 8 * C * N, popc=_pair_popc(hap.nh, g),
+                  flops=2 * _pairs(hap.nh, N))
+
+
+def phase_wide_kernels(dev):
+    """Phase 7's kernel checks; returns the max abs error of S."""
+    rng = np.random.default_rng(SEED + 7)
+    err = 0.0
+    cases = [(1, 64, 1, 16), (8, 64, 2, 16), (8, 128, 9, 16),
+             (1, 256, 48, 16), (8, 512, 48, 8), (1, 1024, 128, 8),
+             (8, 1024, 128, 8), (1, 1600, 160, 8), (8, 1600, 160, 4),
+             (8, 4096, 160, 4), (1, 4096, 1024, 4), (8, 640, 1024, 4)]
+    for C, H, A, N in cases:
+        hap, g, tie = _score_case(rng, C, H, A, N, dev)
+        label = f"C={C} H={H} A={A} N={N}"
+        e = _check_scores(hap, g, A, label, tie)
+        err = max(err, e)
+        print(f"[wide-kernel] {label}: bitwise deterministic, dmin exact, "
+              f"S max abs err {e:.3e}{', tie exact' if tie else ''}")
+    from hibag_tpu_torch.ops import post_scores as ps
+    hap, g, want = _ordered_pair_case(dev)
+    for label, S in (("ensemble_scores", ps.ensemble_scores(hap, g, 3)[0]),
+                     ("posterior_scores_kernel", ps.posterior_scores_kernel(
+                         hap, g[0], 3)[0][None])):
+        _close(f"ordered pairs {label}", S.cpu(), torch.from_numpy(want),
+               SCORE_RTOL, SCORE_ATOL)
+    print("[wide-kernel] ordered pairs within and across alleles: both entry "
+          "points equal the float64 sum over ordered pairs")
+    return err
+
+
+def phase_wide(dev, card):
+    """Phase 7; returns the scoring kernel's record at the scan engine's
+    chunk shape, with its launches on the timed predict() run."""
+    from hibag_tpu_torch import AttrBagModel, predict
+    from hibag_tpu_torch.data.geno import align_to_model
+    from hibag_tpu_torch.models import predict as predict_mod
+    from hibag_tpu_torch.ops import ens_acc
+    from hibag_tpu_torch.ops import post_scores as ps
+    from hibag_tpu_torch.utils.synthetic import (synthetic_cohort,
+                                                 synthetic_model)
+
+    err = phase_wide_kernels(dev)
+    built, pool = synthetic_model(SEED, n_classifiers=100, n_snp=1000,
+                                  n_alleles=160, hap_range=(600, 1600),
+                                  max_variants=20, mutation=0.1)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "wide.npz")
+        built.save(path)
+        model = AttrBagModel.load(path)
+    geno, true1, true2 = synthetic_cohort(model, pool, N_WIDE, SEED + 8)
+    A = model.n_alleles
+    nh = np.array([c.n_haplo for c in model.classifiers])
+    if ens_acc.fits(int(nh.max()), A):
+        raise AssertionError("the wide model fits the ensemble kernel")
+
+    # the kernel at the scan engine's chunk shape and at one classifier, on
+    # predict()'s tensors
+    packed = model.pack()
+    hap = predict_mod._prepare_ensemble(packed, dev)
+    codes, _ = align_to_model(model, geno)
+    cc = predict_mod.SCAN_CCHUNK
+    g, _ = predict_mod._gather_codes(
+        torch.from_numpy(packed.snp_index[:cc]).to(dev),
+        torch.from_numpy(packed.snp_weight).to(dev),
+        torch.from_numpy(codes).to(dev))
+    timing = {}
+    for name, part, gp in (("ensemble_scores", hap.subset(0, cc), g),
+                           ("posterior_scores_kernel", hap.subset(0, 1),
+                            g[:1])):
+        args = (part, gp if name == "ensemble_scores" else gp[0], A)
+        e = _check_scores(part, gp, A, f"wide chunk {name}")
+        ms = _cuda_ms(lambda: getattr(ps, name)(*args), 5)
+        plain_ms = _cuda_ms(lambda: getattr(ps, f"{name}_ref")(*args), 1)
+        bound = _scores_bound(part, gp, A)
+        timing[name] = {"max_abs_err": max(err, e), "ms": ms,
+                        "plain_ms": plain_ms, **bound}
+        print(f"[wide-kernel] {name} at C={part.n_classifiers} N={N_WIDE} "
+              f"H={part.n_slots} A={A} (haplotypes {part.nh.tolist()}): S "
+              f"max abs err {e:.3e}; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}) | {card}")
+
+    # the main path: predict() of the wide model, counted on the timed run
+    predict(model, geno, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ps.LAUNCHES = 0
+    ens_acc.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = predict(model, geno, device="cuda")
+    elapsed = time.perf_counter() - t0
+    launches, ens_launches = ps.LAUNCHES, ens_acc.LAUNCHES
+    peak = torch.cuda.max_memory_allocated(dev)
+    chunks = -(-model.n_classifiers // cc)
+    if launches < 1 or launches % chunks:
+        raise AssertionError(f"the scan engine launched the scoring kernel "
+                             f"{launches} times, not once per chunk of {cc} "
+                             "classifiers and sample block")
+    if ens_launches:
+        raise AssertionError("the wide model launched the ensemble kernel")
+
+    if not (np.all(res.prob > 0) and np.all(res.prob <= 1 + 1e-4)):
+        raise AssertionError("wide: probabilities outside (0, 1 + 1e-4]")
+    if not np.all(np.isfinite(res.matching)):
+        raise AssertionError("wide: non-finite matching")
+    acc = res.accuracy_vs(true1, true2)
+    if acc < 0.9:
+        raise AssertionError(f"wide: accuracy {acc:.4f} < 0.9")
+    sub = geno.subset(samp_mask=np.arange(N_WIDE_F64))
+    r64 = predict(model, sub, device="cuda", dtype=np.float64, with_prob=True)
+    top2 = -np.sort(-r64.postprob, axis=0)[:2]
+    clear = top2[0] - top2[1] > 1e-4 * top2[0]
+    same = ((res.allele1[:N_WIDE_F64] == r64.allele1)
+            & (res.allele2[:N_WIDE_F64] == r64.allele2))
+    if not np.all(same[clear]):
+        raise AssertionError(f"wide: {int((~same[clear]).sum())} calls differ "
+                             "from the float64 scan engine outside the tie "
+                             "margin")
+    print(f"[wide] C={model.n_classifiers} P={model.n_snp} A={A} "
+          f"N={N_WIDE}: haplotypes per classifier {nh.min()}..{nh.max()} "
+          f"({int((nh > ens_acc.MAX_H).sum())} above {ens_acc.MAX_H}); "
+          f"{N_WIDE / elapsed:.1f} samples/s ({elapsed * 1e3:.2f} ms, "
+          f"SCAN_CCHUNK={cc}), peak device memory {peak / 2**30:.3f} GiB; "
+          f"scoring kernel launches {launches}, ens_acc 0; accuracy "
+          f"{acc:.4f}; f64 calls equal on {int(clear.sum())}/{N_WIDE_F64} "
+          f"clear samples | {card}")
+    return {"launches": launches, **timing["ensemble_scores"]}
+
+
 def main():
     dev, card = phase_device()
     phase_build()
@@ -572,10 +907,10 @@ def main():
         torch.from_numpy(codes).to(dev))
     timing = phase_kernel(dev, hap, g, w, A)
 
-    # phase 4: the main path
-    ens_acc.LAUNCHES = 0
+    # phase 4: the main path, counted on the timed run
     predict(model, geno, device="cuda")
     torch.cuda.synchronize()
+    ens_acc.LAUNCHES = 0
     t0 = time.perf_counter()
     res = predict(model, geno, device="cuda")
     elapsed = time.perf_counter() - t0
@@ -616,6 +951,7 @@ def main():
     train_timing = phase_train_kernels(dev)
     train_launches = phase_train(card)
     train_launches["em_estep_packed"] = phase_packed(card)
+    wide = phase_wide(dev, card)
 
     kernels = [{"name": "ens_acc", "route": "cuda",
                 "source": "hibag_tpu_torch/csrc/ens_acc.cu",
@@ -631,6 +967,15 @@ def main():
                         "source": f"hibag_tpu_torch/csrc/{src}",
                         "replaces": line, "launches": train_launches[name],
                         **train_timing[name]})
+    # one kernel serves _kernel (one classifier) and _kernel_ens (a chunk)
+    kernels.append({"name": "post_scores", "route": "cuda",
+                    "source": "hibag_tpu_torch/csrc/post_scores.cu",
+                    "replaces": "hibag_tpu/ops/scoring_pallas.py:33, "
+                                "hibag_tpu/ops/scoring_pallas.py:116",
+                    **wide})
+    # no single PyTorch call computes any of these functions
+    for k in kernels:
+        k["library_ms"] = None
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@
   tensors: from a PackedEnsemble (built from a model that either package
   loaded from the shared ``.npz`` format), or from the numpy copies of
   hibag_tpu's own prepared ensemble tensors
-  (hibag_tpu.models.predict._prepare_ensemble: hb, W, valid).
+  (hibag_tpu.models.predict._prepare_ensemble: hb, W, valid). One
+  classifier's posterior_scores_pallas inputs take the second route at C = 1.
 * A fused growth state (models.train_fused.GrowState) from the numpy copies
   of hibag_tpu's GrowState and its threefry keys, so that growth started in
   one package can go on in the other.
@@ -35,6 +36,13 @@ def ensemble_from_jax_prepared(hb, W, valid, device) -> PackedHaplotypes:
     freq = np.where(valid, W.sum(axis=-1), 0.0)
     allele = W.argmax(axis=-1)
     return pack_haplotypes(np.asarray(hb), freq, allele, W.shape[-1], device)
+
+
+def classifier_from_jax_prepared(hb, W, valid, device) -> PackedHaplotypes:
+    """One classifier (C = 1) from np.asarray of posterior_scores_pallas'
+    inputs: hb f32 [Hp, L], W f32 [Hp, Ap], valid f32 [Hp]."""
+    return ensemble_from_jax_prepared(np.asarray(hb)[None], np.asarray(W)[None],
+                                      np.asarray(valid)[None, :, None], device)
 
 
 def grow_state_from_jax(state, device) -> GrowState:

@@ -9,12 +9,21 @@ Per classifier c and sample n (reference semantics, src/LibHLA.cpp:2317-2482):
   * matching[n] = Σ_c w·normalizer / Σ_c w
   * dosage[A] = 2·P[A,A] + Σ_{B≠A} P{A,B}
 
-Two engines:
-  * "auto" (the default): all classifiers of a sample block in one call of
-    ops.ens_acc.ensemble_accumulate — the CUDA kernel on a card, its plain
-    PyTorch version on the CPU;
-  * "scan": a loop over classifiers through ops.scoring.posterior_scores,
-    which `dtype=np.float64` selects as the reference-precision path.
+Two engines, chosen openly by the model's shape:
+  * the ensemble engine: all classifiers of a sample block in one call of
+    ops.ens_acc.ensemble_accumulate. engine="auto" (the default) takes it
+    for every model that kernel takes (ens_acc.fits: at most 1,024
+    haplotypes per classifier and 128 alleles);
+  * the scan engine (_predict_block): chunks of SCAN_CCHUNK classifiers,
+    each chunk one call of ops.post_scores.ensemble_scores, then
+    per-classifier weights, majority votes and matching in torch ops. engine="auto" takes it for the wider models, as
+    hibag_tpu.predict does (hibag_tpu/models/predict.py:505-519), and
+    engine="scan" always. Its kernel takes 4,096 haplotypes per classifier
+    and 1,024 alleles.
+Each wrapper launches its CUDA kernel on a card and runs its plain PyTorch
+version on the CPU. dtype=np.float64 is the reference-precision scan engine,
+ops.scoring.posterior_scores in float64 on any device, as hibag_tpu's float64
+path has no kernel either.
 """
 
 from __future__ import annotations
@@ -27,9 +36,10 @@ import torch
 
 from ..constants import GENO_MISSING, LOG_MIN_RARE_FREQ, MAXNUM_SNP
 from ..device import resolve_device
+from ..ops import ens_acc, post_scores
 from ..ops.ens_acc import PackedHaplotypes, ensemble_accumulate
-from ..ops.scoring import (majority_hits, posterior_scores,
-                            unordered_from_S)
+from ..ops.post_scores import ensemble_scores
+from ..ops.scoring import majority_hits, posterior_scores, unordered_from_S
 from .convert import ensemble_from_packed
 from .model import AttrBagModel, IdCache
 
@@ -42,64 +52,90 @@ def _log_match(w, total, dmin):
     return torch.where(w > 0, lm, -torch.inf)
 
 
+#: classifiers per launch of the scan engine's scoring kernel: a launch is
+#: cchunk * n blocks of one (classifier, sample) each, and its
+#: [cchunk, n, A, A] output sizes the block. The smallest value within 2% of
+#: the fastest in utils/profile_predict.py's comparison of 1, 2, 4, 8 and 16
+#: on its wide cell (PERF.md)
+SCAN_CCHUNK = 8
+
+
 def _one_classifier_fn(geno_codes, snp_weight, n_alleles, vote, acc_dt):
-    """Per-classifier prediction closure of the scan engine.
+    """Per-chunk closure of the scan engine.
 
-    Returns a function (bits, freq, allele, sidx) ->
-    (contrib [n,A,A], wadd [n], log_match [n], w [n]).
+    Returns a function (scores, sidx) -> (contrib [n,A,A] summed over the
+    chunk, wadd [n], log_match [cc,n], w [cc,n]) for a chunk of cc
+    classifiers with SNP slots sidx [cc, L], where scores(g) gives their
+    (S [cc,n,A,A], dmin [cc,n], total [cc,n]) from the gathered codes g int8
+    [cc, n, L]. S is overwritten in place.
     """
-    f64 = acc_dt == torch.float64
+    A = n_alleles
 
-    def one_classifier(bits, freq, allele, sidx):
-        in_cls = sidx >= 0
-        safe = sidx.clamp_min(0).long()
-        g = torch.where(in_cls[None, :], geno_codes[:, safe],
-                        GENO_MISSING).to(torch.int8)            # [n, L]
-        wsnp = snp_weight[safe] * in_cls                        # [L]
-        nonmiss = g != GENO_MISSING
-        w = ((nonmiss * wsnp[None, :]).sum(-1).to(acc_dt)
-             / wsnp.sum().clamp_min(1).to(acc_dt))              # [n]
-        res = posterior_scores(bits, freq, allele, g, n_alleles, f64=f64)
-        Q = unordered_from_S(res["S"])
-        total = res["total"]
-        log_match = _log_match(w, total, res["dmin"])
+    def one_chunk(scores, sidx):
+        g, w = _gather_codes(sidx, snp_weight, geno_codes, acc_dt)
+        S, dmin, total = scores(g)
+        Q = unordered_from_S(S, inplace=True)
+        log_match = _log_match(w, total, dmin)
         if vote == "prob":
-            contrib = Q * (w / total.clamp_min(1e-30))[:, None, None]
-            wadd = w
+            contrib = Q.mul_((w / total.clamp_min(1e-30))[..., None, None])
+            wadd = w.sum(0)
         else:
-            contrib = majority_hits(Q) * (w > 0)[:, None, None]
-            wadd = (w > 0).to(acc_dt)
-        return contrib, wadd, log_match, w
+            cc, n = w.shape
+            contrib = majority_hits(Q.reshape(cc * n, A, A)).reshape(
+                cc, n, A, A) * (w > 0)[..., None, None]
+            wadd = (w > 0).to(acc_dt).sum(0)
+        return contrib.sum(0), wadd, log_match, w
 
-    return one_classifier
+    return one_chunk
 
 
-def _predict_block(hap_bits, hap_freq, hap_allele, snp_index, snp_weight,
-                   geno_codes, n_alleles, vote="prob", f64=False):
-    """One block of samples against the whole ensemble, classifier by
-    classifier (the scan engine).
+def _chunk_scores(hap, c0, c1, n_alleles, f64):
+    """scores(g) of classifiers c0..c1-1 for _one_classifier_fn: one launch
+    of the scoring kernel (ensemble_scores) or, with f64,
+    ops.scoring.posterior_scores in float64 classifier by classifier."""
+    A = n_alleles
+    if f64:
+        bits, freq, allele = (x[c0:c1] for x in hap)
 
-    hap_bits [C,Hm,L]; hap_freq [C,Hm]; hap_allele [C,Hm]; snp_index [C,L];
-    snp_weight [P]; geno_codes [n,P] uint8. Returns ens [n,A,A]
-    (weight-normalized, symmetric unordered convention), wsum [n],
-    log_match [C,n], w [C,n].
+        def scores(g):
+            res = [posterior_scores(bits[k], freq[k], allele[k], g[k], A,
+                                    f64=True) for k in range(c1 - c0)]
+            return tuple(torch.stack([r[key] for r in res])
+                         for key in ("S", "dmin", "total"))
+        return scores
+    part = hap.subset(c0, c1)
+    return lambda g: ensemble_scores(part, g, A)
+
+
+def _predict_block(hap, snp_index, snp_weight, geno_codes, n_alleles,
+                   vote="prob", cchunk=SCAN_CCHUNK, f64=False):
+    """One block of samples against the whole ensemble, `cchunk`
+    classifiers at a time (the scan engine).
+
+    hap: the ensemble as PackedHaplotypes, scored in float32 by the scoring
+    kernel on a card and by its plain version on the CPU; with `f64`, the
+    tuple (hap_bits [C,Hm,L], hap_freq [C,Hm] float64, hap_allele [C,Hm]).
+    snp_index [C,L]; snp_weight [P]; geno_codes [n,P] uint8. The last chunk
+    may hold fewer classifiers. Returns ens [n,A,A] (weight-normalized,
+    symmetric unordered convention), wsum [n], log_match [C,n], w [C,n].
     """
     n, A = geno_codes.shape[0], n_alleles
+    C = snp_index.shape[0]
     acc_dt = torch.float64 if f64 else torch.float32
-    one_classifier = _one_classifier_fn(geno_codes, snp_weight, A, vote,
-                                        acc_dt)
+    one_chunk = _one_classifier_fn(geno_codes, snp_weight, A, vote, acc_dt)
     ens = torch.zeros((n, A, A), dtype=acc_dt, device=geno_codes.device)
     wsum = torch.zeros((n,), dtype=acc_dt, device=geno_codes.device)
     log_match, ws = [], []
-    for c in range(hap_bits.shape[0]):
-        contrib, wadd, lm, w = one_classifier(hap_bits[c], hap_freq[c],
-                                              hap_allele[c], snp_index[c])
+    for c0 in range(0, C, cchunk):
+        c1 = min(c0 + cchunk, C)
+        contrib, wadd, lm, w = one_chunk(
+            _chunk_scores(hap, c0, c1, A, f64), snp_index[c0:c1])
         ens += contrib
         wsum += wadd
         log_match.append(lm)
         ws.append(w)
     ens = ens / wsum.clamp_min(1e-30)[:, None, None]
-    return ens, wsum, torch.stack(log_match), torch.stack(ws)
+    return ens, wsum, torch.cat(log_match), torch.cat(ws)
 
 
 #: device tensors per PackedEnsemble, one entry per device (weak: dies with
@@ -108,10 +144,9 @@ _PREP_CACHE = IdCache()
 
 
 def _prepare_ensemble(packed, device) -> PackedHaplotypes:
-    """The ensemble in the kernel's layout on `device`, built once per
+    """The ensemble in the kernels' layout on `device`, built once per
     (PackedEnsemble, device) so repeated predict() calls skip the packing
-    and the host-to-device copy. Raises ValueError for a model the kernel
-    does not take."""
+    and the host-to-device copy."""
     per_dev = _PREP_CACHE.get(packed)
     if per_dev is None:
         per_dev = {}
@@ -123,10 +158,10 @@ def _prepare_ensemble(packed, device) -> PackedHaplotypes:
     return hap
 
 
-def _gather_codes(snp_index, snp_weight, geno_codes):
+def _gather_codes(snp_index, snp_weight, geno_codes, dtype=torch.float32):
     """Codes gathered to each classifier's SNP slots, g int8 [C, n, L]
-    (3 = missing or padded slot), and the classifier weights w float32
-    [C, n], both contiguous."""
+    (3 = missing or padded slot), and the classifier weights w [C, n] in
+    `dtype`, both contiguous."""
     C, L = snp_index.shape
     n = geno_codes.shape[0]
     in_cls = snp_index >= 0                                     # [C, L]
@@ -135,8 +170,8 @@ def _gather_codes(snp_index, snp_weight, geno_codes):
     g = torch.where(in_cls[:, None, :], g, GENO_MISSING).to(torch.int8)
     wsnp = snp_weight[safe] * in_cls                            # [C, L]
     nonmiss = g != GENO_MISSING
-    w = ((nonmiss * wsnp[:, None, :]).sum(-1).to(torch.float32)
-         / wsnp.sum(-1, keepdim=True).clamp_min(1).to(torch.float32))
+    w = ((nonmiss * wsnp[:, None, :]).sum(-1).to(dtype)
+         / wsnp.sum(-1, keepdim=True).clamp_min(1).to(dtype))
     return g.contiguous(), w.contiguous()
 
 
@@ -203,12 +238,21 @@ def _pack_stats(ens, wsum, log_match, w, response=False):
     return _pack_cols(ens, wsum, lse, w.sum(dim=0), response)
 
 
-def _default_block(N, C, A, Hm, device) -> int:
+def _default_block(N, C, A, Hm, device, ens=True, cchunk=SCAN_CCHUNK,
+                   f64=False) -> int:
     """Samples per block from the device's memory: an eighth of the card's
     memory (256 MiB on the CPU) over a per-sample bound of the block's
-    intermediates — gathered codes and weights [C, n, L], the [n, A, A]
-    posteriors and the plain versions' [n, H, H] distance tensors."""
-    per_sample = C * (8 * MAXNUM_SNP + 24) + 16 * A * A + 32 * Hm * Hm
+    intermediates — gathered codes and weights of the classifiers in flight
+    (all C for the ensemble kernel, `cchunk` for the scan engine), the
+    [n, A, A] posteriors, the scan engine's [cchunk, n, A, A] scores and
+    their products, and, where plain versions run (the CPU, and float64 on
+    any device), their [n, H, H] distance tensors."""
+    k = C if ens else min(cchunk, C)
+    per_sample = k * (8 * MAXNUM_SNP + 24) + 16 * A * A
+    if not ens:
+        per_sample += 12 * k * A * A
+    if device.type != "cuda" or f64:
+        per_sample += (64 if f64 else 32) * Hm * Hm
     if device.type == "cuda":
         budget = torch.cuda.get_device_properties(device).total_memory // 8
     else:
@@ -265,11 +309,20 @@ def predict(model: AttrBagModel, data, vote: str = "prob",
 
     type: reference-style output selector ("response+dosage" [default],
     "response", "prob", "response+prob") overriding with_dosage/with_prob.
-    engine: "auto" (the ensemble kernel; its plain version on the CPU) or
-    "scan" (classifier loop in plain PyTorch).
-    A model the kernel does not take raises ValueError naming the limit.
+    engine: "auto" or "scan". "auto" runs the ensemble kernel
+    (ops/ens_acc.py) for every model it takes (ens_acc.fits: at most
+    ens_acc.MAX_H haplotypes per classifier and ens_acc.MAX_A alleles) and
+    the scan engine for the rest, as hibag_tpu.predict sends a model beyond
+    its ensemble kernel's limit to its scan engine; "scan" always takes the
+    scan engine. The scan engine scores SCAN_CCHUNK classifiers per launch
+    of the scoring kernel (ops/post_scores.py: at
+    most post_scores.MAX_H haplotypes and post_scores.MAX_A alleles; beyond
+    them it raises ValueError naming the limit). Each engine's LAUNCHES
+    counts its kernel's launches; on the CPU both run their plain versions.
     block: samples per block (default: from the device's memory).
-    dtype: np.float64 selects the reference-precision scan engine.
+    dtype: np.float64 selects the reference-precision scan engine, plain
+    PyTorch in float64 on any device (hibag_tpu's float64 path has no
+    kernel either).
     mesh / devices: multi-device prediction is not ported yet and raises
     NotImplementedError.
     """
@@ -287,7 +340,6 @@ def predict(model: AttrBagModel, data, vote: str = "prob",
     if engine not in ("auto", "scan"):
         raise ValueError(f"unknown engine {engine!r}")
     f64 = np.dtype(dtype) == np.float64
-    use_kernel = engine == "auto" and not f64
     dev = resolve_device(device)
     from ..data.geno import SNPGenoData, align_to_model
 
@@ -310,15 +362,21 @@ def predict(model: AttrBagModel, data, vote: str = "prob",
     N = codes.shape[0]
     A = model.n_alleles
     C = model.n_classifiers
-    if use_kernel:
-        hap = _prepare_ensemble(packed, dev)
-    else:
-        hb, hf, ha = (torch.from_numpy(x).to(dev) for x in (
+    if f64:
+        hap = tuple(torch.from_numpy(x).to(dev) for x in (
             packed.hap_bits, packed.hap_freq, packed.hap_allele))
+        Hm = packed.hap_bits.shape[1]
+        use_ens = False
+    else:
+        hap = _prepare_ensemble(packed, dev)
+        Hm = hap.n_slots
+        use_ens = engine == "auto" and ens_acc.fits(Hm, A)
+        if not use_ens:
+            post_scores.check_limits(Hm, A)
     si = torch.from_numpy(packed.snp_index).to(dev)
     sw = torch.from_numpy(packed.snp_weight.astype(np.int32)).to(dev)
     if block is None:
-        block = _default_block(N, C, A, packed.hap_bits.shape[1], dev)
+        block = _default_block(N, C, A, Hm, dev, use_ens, SCAN_CCHUNK, f64)
     block = max(1, min(block, N))
 
     response = not with_prob
@@ -337,10 +395,10 @@ def predict(model: AttrBagModel, data, vote: str = "prob",
     geno_all = torch.from_numpy(np.ascontiguousarray(codes)).to(dev)
     for start in range(0, N, block):
         g = geno_all[start:start + block]
-        if use_kernel:
+        if use_ens:
             out = _predict_block_ens(hap, si, sw, g, A, vote)
         else:
-            out = _predict_block(hb, hf, ha, si, sw, g, A, vote, f64)
+            out = _predict_block(hap, si, sw, g, A, vote, SCAN_CCHUNK, f64)
         buf = _pack_stats(*out, response=response).to(
             "cpu", torch.float64).numpy()
         n_eff = buf.shape[0]

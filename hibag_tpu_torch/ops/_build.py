@@ -98,6 +98,8 @@ def load() -> ctypes.CDLL:
     lib.hibag_em_estep.restype = i
     lib.hibag_eval_cand.argtypes = [p] * 15 + [i] * 6 + [p]
     lib.hibag_eval_cand.restype = i
+    lib.hibag_post_scores.argtypes = [p] * 9 + [i] * 4 + [p]
+    lib.hibag_post_scores.restype = i
     lib.hibag_eval_smem.argtypes = [i] * 3
     lib.hibag_eval_smem.restype = ctypes.c_longlong
     lib.hibag_cuda_error_string.argtypes = [i]

@@ -2,7 +2,8 @@
 kernel csrc/ens_acc.cu, and its plain PyTorch version.
 
 Counterpart of hibag_tpu/ops/scoring_pallas.py::ensemble_accumulate_pallas
-(with pick_nb and ens_kernel_supported, whose role `check_limits` takes).
+(with pick_nb and ens_kernel_supported, whose roles `fits` and
+`check_limits` take).
 For samples n and classifiers c it returns
 
     ens [N, A, A] = Σ_c wgt[c,n] · Q_c[n] / max(total[c,n], 1e-30)
@@ -56,21 +57,33 @@ class PackedHaplotypes:
     def n_slots(self) -> int:
         return int(self.hb.shape[1])
 
+    def subset(self, c0: int, c1: int) -> "PackedHaplotypes":
+        """Classifiers c0..c1-1, as contiguous views."""
+        return PackedHaplotypes(hb=self.hb[c0:c1], freq=self.freq[c0:c1],
+                                allele=self.allele[c0:c1], nh=self.nh[c0:c1])
+
+
+def fits(n_slots: int, n_alleles: int) -> bool:
+    """Whether the kernel takes classifiers of `n_slots` haplotypes and
+    `n_alleles` alleles (predict() sends other models to the scan engine)."""
+    return n_slots <= MAX_H and 1 <= n_alleles <= MAX_A
+
 
 def check_limits(n_slots: int, n_alleles: int) -> None:
-    """Raise ValueError for a shape the kernel does not take."""
-    if n_slots > MAX_H:
-        raise ValueError(f"{n_slots} haplotypes in one classifier exceed the "
-                         f"ensemble kernel's limit MAX_H={MAX_H}")
-    if not 1 <= n_alleles <= MAX_A:
-        raise ValueError(f"{n_alleles} alleles: the ensemble kernel takes "
-                         f"1..MAX_A={MAX_A}")
+    """Raise ValueError for a shape the kernel does not take (not `fits`)."""
+    if not fits(n_slots, n_alleles):
+        raise ValueError(f"{n_slots} haplotypes per classifier and {n_alleles} "
+                         f"alleles: the ensemble kernel takes at most "
+                         f"MAX_H={MAX_H} haplotypes and 1..MAX_A={MAX_A} "
+                         "alleles")
 
 
 def pack_haplotypes(bits, freq, allele, n_alleles: int,
                     device) -> PackedHaplotypes:
     """PackedHaplotypes from numpy bits [C, Hs, L] {0,1}, freq [C, Hs] (<= 0
-    for padded slots) and allele [C, Hs]."""
+    for padded slots) and allele [C, Hs]. The layout is shared by the
+    ensemble kernel and the scoring kernel (ops/post_scores.py); each
+    kernel's wrapper checks its own limits on the slot and allele counts."""
     bits = np.asarray(bits)
     freq = np.asarray(freq, dtype=np.float32)
     allele = np.asarray(allele).astype(np.int64)
@@ -85,7 +98,6 @@ def pack_haplotypes(bits, freq, allele, n_alleles: int,
     if ((allele < 0) | (allele >= n_alleles))[valid].any():
         raise ValueError(f"haplotype allele index outside [0, {n_alleles})")
     H = int(nh.max())
-    check_limits(H, n_alleles)
     order = np.argsort(np.where(valid, allele, n_alleles), axis=1,
                        kind="stable")[:, :H]
     keep = np.take_along_axis(valid, order, 1)
@@ -111,9 +123,10 @@ def unpack_bits(hb: torch.Tensor) -> torch.Tensor:
     return bits.reshape(*hb.shape[:-1], 4 * 32).to(torch.float32)
 
 
-def _check(hap: PackedHaplotypes, g, wgt, n_alleles):
+def check_inputs(hap: PackedHaplotypes, g: torch.Tensor) -> None:
+    """Raise ValueError unless hap's tensors and the codes g int8 [C, N, 128]
+    have the layout the kernels take, contiguous and on one device."""
     C, H = hap.n_classifiers, hap.n_slots
-    check_limits(H, n_alleles)
     if tuple(hap.hb.shape) != (C, H, 4) or hap.hb.dtype != torch.int32:
         raise ValueError("hb must be int32 [C, H, 4]")
     if (tuple(hap.freq.shape) != (C, H) or hap.freq.dtype != torch.float32
@@ -126,12 +139,24 @@ def _check(hap: PackedHaplotypes, g, wgt, n_alleles):
             or g.shape[2] != MAXNUM_SNP:
         raise ValueError(f"g must be int8 [C={C}, N, {MAXNUM_SNP}], got "
                          f"{g.dtype} {tuple(g.shape)}")
-    if wgt.dtype != torch.float32 or tuple(wgt.shape) != (C, g.shape[1]):
-        raise ValueError(f"wgt must be float32 [{C}, {g.shape[1]}]")
-    tensors = (hap.hb, hap.freq, hap.allele, hap.nh, g, wgt)
+    tensors = (hap.hb, hap.freq, hap.allele, hap.nh, g)
     if any(x.device != g.device for x in tensors):
         raise ValueError("all inputs must be on one device")
     if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("all inputs must be contiguous")
+    if g.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {g.device}")
+
+
+def _check(hap: PackedHaplotypes, g, wgt, n_alleles):
+    check_limits(hap.n_slots, n_alleles)
+    check_inputs(hap, g)
+    C = hap.n_classifiers
+    if wgt.dtype != torch.float32 or tuple(wgt.shape) != (C, g.shape[1]):
+        raise ValueError(f"wgt must be float32 [{C}, {g.shape[1]}]")
+    if wgt.device != g.device:
+        raise ValueError("all inputs must be on one device")
+    if not wgt.is_contiguous():
         raise ValueError("all inputs must be contiguous")
 
 
@@ -156,8 +181,6 @@ def ensemble_accumulate(hap: PackedHaplotypes, g: torch.Tensor,
     _check(hap, g, wgt, n_alleles)
     if g.device.type == "cpu":
         return ensemble_accumulate_ref(hap, g, wgt, n_alleles, majority)
-    if g.device.type != "cuda":
-        raise ValueError(f"unsupported device {g.device}")
     from . import _build
 
     C, N, A = hap.n_classifiers, int(g.shape[1]), n_alleles

@@ -78,12 +78,13 @@ def posterior_scores(hap_bits, hap_freq, hap_allele, geno_codes, n_alleles,
     return {"S": S, "dmin": dmin, "total": S.sum(dim=(1, 2))}
 
 
-def unordered_from_S(S: torch.Tensor) -> torch.Tensor:
+def unordered_from_S(S: torch.Tensor, inplace: bool = False) -> torch.Tensor:
     """Symmetric ordered-pair scores → unordered-pair convention
-    (off-diagonal doubled, diagonal kept), still a full symmetric matrix."""
+    (off-diagonal doubled, diagonal kept), still a full symmetric matrix;
+    with `inplace`, written over S."""
     A = S.shape[-1]
     eye = torch.eye(A, dtype=S.dtype, device=S.device)
-    return S * (2.0 - eye)
+    return S.mul_(2.0 - eye) if inplace else S * (2.0 - eye)
 
 
 def majority_hits(Q: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,8 @@ Trains the two training cells of chip_smoke.py (mid-scale: 1,000 samples x
 hcap=128 on the packed EM tier) on seeded synthetic mosaic panels
 (synthetic.PANEL_RECOMBINATION) and reports per
 cell: the wall time of three plain calls after a warm-up, the device time
-and idle share of one call under torch.profiler with its top device ops,
+(kernels and copies, each once) and idle share of one call under
+torch.profiler with its top device ops,
 and the time of each layer of the growth step (draw, pair matching, EM
 kernel, EM loop, erase, evaluation kernel, decide) under timers that
 synchronise the card around each layer. The timers add a synchronisation
@@ -51,14 +52,15 @@ CELLS = {
 
 
 @contextlib.contextmanager
-def layer_timers():
-    """Wrap each layer of LAYERS with a synchronising timer; yields
-    {layer: [seconds, calls]} and restores the functions on exit."""
+def layer_timers(layers=LAYERS):
+    """Wrap each layer of `layers` ((module path, attribute, name) triples)
+    with a synchronising timer; yields {layer: [seconds, calls]} and
+    restores the functions on exit."""
     import importlib
 
     acc = collections.defaultdict(lambda: [0.0, 0])
     saved = []
-    for mod_name, attr, label in LAYERS:
+    for mod_name, attr, label in layers:
         mod = importlib.import_module(mod_name)
         fn = getattr(mod, attr)
         saved.append((mod, attr, fn))
@@ -79,6 +81,21 @@ def layer_timers():
             setattr(mod, attr, fn)
 
 
+def device_summary(prof, n_top):
+    """(device seconds, top device ops) of a torch.profiler run: the kernels
+    and copies that ran on the card, each counted once (an operator on the
+    host reports its kernels' device time as its own too, so summing every
+    event would count them twice)."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    dev = lambda e: getattr(e, "self_device_time_total", 0) or 0
+    top = [(e.key[:60], round(dev(e) / 1e3, 3), e.count)
+           for e in sorted(events, key=lambda e: -dev(e))[:n_top]]
+    return sum(dev(e) for e in events) / 1e6, top
+
+
 def profile_cell(table, geno, kw) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
@@ -95,11 +112,7 @@ def profile_cell(table, geno, kw) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         profiled = run()
-    events = prof.key_averages()
-    dev = lambda e: getattr(e, "self_device_time_total", 0) or 0
-    device_s = sum(dev(e) for e in events) / 1e6
-    top = [(e.key[:60], round(dev(e) / 1e3, 3), e.count)
-           for e in sorted(events, key=lambda e: -dev(e))[:12]]
+    device_s, top = device_summary(prof, 12)
     with layer_timers() as acc:
         timed_wall = run()
     return {"walls_s": walls, "profiled_wall_s": profiled,

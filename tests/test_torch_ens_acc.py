@@ -110,19 +110,31 @@ def test_pack_compacts_valid_slots_by_allele():
 
 
 def test_limits_raise():
+    """Packing checks its own input only (the layout is shared with the
+    scoring kernel); the ensemble kernel's wrapper raises beyond its
+    limits."""
     rng = np.random.default_rng(5)
     big = ens_acc.MAX_H + 1
+    hap = ens_acc.pack_haplotypes(rng.integers(0, 2, (1, big, L)),
+                                  np.full((1, big), 1.0 / big),
+                                  np.zeros((1, big), int), 4, "cpu")
+    assert hap.n_slots == big
+    g = torch.full((1, 2, L), 3, dtype=torch.int8)
+    w = torch.ones((1, 2))
     with pytest.raises(ValueError, match="MAX_H"):
-        ens_acc.pack_haplotypes(rng.integers(0, 2, (1, big, L)),
-                                np.full((1, big), 1.0 / big),
-                                np.zeros((1, big), int), 4, "cpu")
+        ens_acc.ensemble_accumulate(hap, g, w, 4)
+    wide = ens_acc.MAX_A + 1
+    hap = ens_acc.pack_haplotypes(rng.integers(0, 2, (1, 8, L)),
+                                  np.full((1, 8), 0.125),
+                                  np.full((1, 8), wide - 1), wide, "cpu")
     with pytest.raises(ValueError, match="MAX_A"):
+        ens_acc.ensemble_accumulate(hap, g, w, wide)
+    with pytest.raises(ValueError, match="allele index"):
         ens_acc.pack_haplotypes(rng.integers(0, 2, (1, 8, L)),
-                                np.full((1, 8), 0.125), np.zeros((1, 8), int),
-                                ens_acc.MAX_A + 1, "cpu")
+                                np.full((1, 8), 0.125), np.full((1, 8), 4),
+                                4, "cpu")
     hb, W, valid, g, wgt = _inputs(6, 2, 64, 8, 9)
     hap = ensemble_from_jax_prepared(hb, W, valid, "cpu")
     with pytest.raises(ValueError, match="int8"):
         ens_acc.ensemble_accumulate(hap, torch.from_numpy(g).int(),
                                     torch.from_numpy(wgt), 9)
-

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on a card: the
-ensemble kernel (ops/ens_acc.py) and the training-step kernels
-(ops/train_step.py), and fused training through them.
+ensemble kernel (ops/ens_acc.py), the scoring kernel (ops/post_scores.py)
+and the training-step kernels (ops/train_step.py); prediction of a wide
+model and fused training through them.
 
 Imports neither jax nor hibag_tpu, so that on a machine with a card and no
 jax it runs as
@@ -17,7 +18,7 @@ import pytest
 import torch
 
 import chip_smoke
-from hibag_tpu_torch.ops import ens_acc
+from hibag_tpu_torch.ops import ens_acc, post_scores
 from hibag_tpu_torch.ops import train_step as ts
 
 
@@ -109,6 +110,87 @@ def test_kernel_edge_shapes(cuda, A):
         assert torch.equal(dmin, dmin_r)
         torch.testing.assert_close(total, total_r, rtol=3e-4, atol=0)
         torch.testing.assert_close(ens, ens_r, rtol=3e-4, atol=1e-7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,H,A,N", [(1, 64, 1, 16), (8, 256, 48, 16),
+                                     (1, 1600, 160, 8), (8, 4096, 160, 4),
+                                     (2, 640, 1024, 4)])
+def test_scores_kernel_matches_plain_version(cuda, C, H, A, N):
+    """chip_smoke.py's phase-7 checks: two runs bitwise equal, dmin exact,
+    S exactly symmetric, S and total at rtol 2e-4 and atol 1e-30, the
+    forced tie exact; one launch counted per call of the entry point."""
+    hap, g, tie = chip_smoke._score_case(np.random.default_rng(C + H + A),
+                                         C, H, A, N, cuda)
+    before = post_scores.LAUNCHES
+    chip_smoke._check_scores(hap, g, A, f"C={C} H={H} A={A} N={N}", tie)
+    assert post_scores.LAUNCHES == before + 2
+
+
+@pytest.mark.gpu
+def test_scores_kernel_ordered_pairs_and_drop_in(cuda):
+    """Ordered pairs within and across alleles against a float64 sum, and
+    classifier_posteriors against ops.scoring.posterior_scores."""
+    from hibag_tpu_torch.ops.scoring import posterior_scores
+
+    hap, g, want = chip_smoke._ordered_pair_case(cuda)
+    for S in (post_scores.ensemble_scores(hap, g, 3)[0],
+              post_scores.posterior_scores_kernel(hap, g[0], 3)[0][None]):
+        torch.testing.assert_close(S.cpu().double(), torch.from_numpy(want),
+                                   rtol=2e-4, atol=1e-30)
+    rng = np.random.default_rng(4)
+    bits = torch.from_numpy(rng.integers(0, 2, (40, 128)).astype(np.float32))
+    freq = torch.from_numpy(rng.dirichlet(np.ones(40)).astype(np.float32))
+    freq[35:] = 0
+    allele = torch.from_numpy(np.sort(rng.integers(0, 14, 40)).astype(np.int32))
+    geno = torch.from_numpy(rng.integers(0, 4, (24, 128)).astype(np.int8))
+    args = [x.to(cuda) for x in (bits, freq, allele, geno)]
+    got = post_scores.classifier_posteriors(*args, 14)
+    ref = posterior_scores(*args, 14)
+    assert torch.equal(got["dmin"], ref["dmin"])
+    torch.testing.assert_close(got["S"], ref["S"], rtol=2e-4, atol=1e-30)
+    torch.testing.assert_close(got["total"], ref["total"], rtol=2e-4,
+                               atol=1e-30)
+
+
+@pytest.mark.gpu
+def test_scores_kernel_raises_on_bad_input(cuda):
+    hap, g, _ = chip_smoke._score_case(np.random.default_rng(1), 2, 64, 9, 8,
+                                       cuda)
+    with pytest.raises(ValueError, match="one device"):
+        post_scores.ensemble_scores(hap, g.cpu(), 9)
+    with pytest.raises(ValueError, match="contiguous"):
+        post_scores.ensemble_scores(
+            hap, g.transpose(0, 1).contiguous().transpose(0, 1), 9)
+    with pytest.raises(ValueError, match="one classifier"):
+        post_scores.posterior_scores_kernel(hap, g[0], 9)
+    with pytest.raises(ValueError, match="MAX_A"):
+        post_scores.ensemble_scores(hap, g, post_scores.MAX_A + 1)
+
+
+@pytest.mark.gpu
+def test_wide_model_predict_runs_the_scan_kernel(cuda):
+    """A model of 130 alleles and classifiers above 1,024 haplotypes
+    predicts on the card through the scoring kernel, never the ensemble
+    kernel, and agrees with the plain versions on the CPU."""
+    from hibag_tpu_torch import predict
+    from hibag_tpu_torch.utils.synthetic import (synthetic_cohort,
+                                                 synthetic_model)
+
+    model, pool = synthetic_model(5, n_classifiers=6, n_snp=300,
+                                  n_alleles=130, snp_range=(20, 40),
+                                  hap_range=(1030, 1100), max_variants=20,
+                                  mutation=0.1)
+    geno, t1, t2 = synthetic_cohort(model, pool, 64, 6)
+    before, ens_before = post_scores.LAUNCHES, ens_acc.LAUNCHES
+    res = predict(model, geno, device="cuda", with_prob=True)
+    torch.cuda.synchronize()
+    assert post_scores.LAUNCHES > before
+    assert ens_acc.LAUNCHES == ens_before
+    cpu = predict(model, geno, device="cpu", with_prob=True)
+    np.testing.assert_allclose(res.postprob, cpu.postprob, rtol=3e-4,
+                               atol=1e-7)
+    assert res.accuracy_vs(t1, t2) > 0.9
 
 
 @pytest.mark.gpu

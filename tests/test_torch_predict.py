@@ -12,6 +12,7 @@ import hibag_tpu
 import hibag_tpu_torch
 from hibag_tpu_torch.models import predict as port_predict
 from hibag_tpu_torch.models.convert import ensemble_from_jax_prepared
+from hibag_tpu_torch.ops import ens_acc, post_scores
 from hibag_tpu_torch.utils.synthetic import synthetic_cohort, synthetic_model
 
 torch.set_num_threads(2)
@@ -129,13 +130,29 @@ def test_npz_from_hibag_tpu_and_jax_prepared_route(case, tmp_path):
 
 
 def test_unsupported_requests_raise(case):
-    model, _, geno, _, _ = case
+    """mesh/devices raise, a model wider than the ensemble kernel takes
+    predicts through the scan engine and agrees with hibag_tpu.predict, a
+    model beyond the scoring kernel's limits raises, and device="cuda"
+    without a card raises."""
+    model, jmodel, geno, jgeno, _ = case
     with pytest.raises(NotImplementedError):
         hibag_tpu_torch.predict(model, geno, device="cpu", devices=[0, 1])
-    wide = model.subset_classifiers(1)
-    wide.hla_alleles = [f"{i:03d}:01" for i in range(129)]
+    names = [f"{i:03d}:01" for i in range(129)]
+    wide, jwide = model.subset_classifiers(1), jmodel.subset_classifiers(1)
+    wide.hla_alleles, jwide.hla_alleles = names, list(names)
+    assert not ens_acc.fits(wide.pack().hap_bits.shape[1], 129)
+    r = hibag_tpu_torch.predict(wide, geno, device="cpu", with_prob=True)
+    j = hibag_tpu.predict(jwide, jgeno, with_prob=True)
+    clear = _clear(j.postprob)
+    assert clear.sum() > 0.5 * len(clear)
+    np.testing.assert_array_equal(r.allele1[clear], j.allele1[clear])
+    np.testing.assert_array_equal(r.allele2[clear], j.allele2[clear])
+    np.testing.assert_allclose(r.postprob, j.postprob, rtol=3e-4, atol=1e-7)
+    np.testing.assert_allclose(r.matching, j.matching, rtol=1e-3)
+    wider = model.subset_classifiers(1)
+    wider.hla_alleles = [f"{i:04d}:01" for i in range(post_scores.MAX_A + 1)]
     with pytest.raises(ValueError, match="MAX_A"):
-        hibag_tpu_torch.predict(wide, geno, device="cpu")
+        hibag_tpu_torch.predict(wider, geno, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             hibag_tpu_torch.predict(model, geno, device="cuda")

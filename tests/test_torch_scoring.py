@@ -79,8 +79,11 @@ def test_posterior_scores_f64():
     np.testing.assert_allclose(p["total"].numpy(), r["total"], rtol=1e-12)
 
 
-def test_unordered_from_S_exact():
+@pytest.mark.parametrize("inplace", [False, True])
+def test_unordered_from_S_exact(inplace):
     S = np.random.default_rng(3).random((4, 7, 7)).astype(np.float32)
+    St = torch.from_numpy(S.copy())
+    got = port.unordered_from_S(St, inplace=inplace)
     np.testing.assert_array_equal(
-        port.unordered_from_S(torch.from_numpy(S)).numpy(),
-        np.asarray(ref.unordered_from_S(jnp.asarray(S))))
+        got.numpy(), np.asarray(ref.unordered_from_S(jnp.asarray(S))))
+    assert (got.data_ptr() == St.data_ptr()) == inplace
