@@ -10,13 +10,20 @@ Phases, one line each (any failure raises and the exit code is non-zero):
   3. kernel  — the ensemble kernel against its plain PyTorch version on the
                same CUDA tensors, prob and majority voting, H up to 1024 and
                A up to 128, with padded slots, all-missing and zero-weight
-               samples and a forced exact tie; dmin exact, ens and total at
-               rtol 3e-4. Then both timed at the slice's shape.
+               samples and a forced exact tie, codes with heterozygous calls
+               in all four 32-SNP words, in none and only in word 3, and
+               classifiers in which one allele holds most haplotypes; two
+               runs bitwise equal, dmin exact, ens and total at rtol 3e-4.
+               Then at the slice's shape (two runs bitwise equal) and both
+               timed there.
   4. slice   — a seeded synthetic model at the width of a published HLA-A
                model (100 classifiers, 1,000 SNPs, 48 alleles) saved to
                .npz and loaded back; predict(device="cuda") on 3,840
-               samples, twice, the second timed. Checks that the kernel
-               ran, that probabilities and matching are sane, that calls
+               samples, twice, the second timed, and once more: calls, prob
+               and matching bitwise equal to the timed call's, and two
+               calls with_prob=True with bitwise-equal postprob. Checks
+               that the kernel ran, that probabilities and matching are
+               sane, that calls
                agree with the float64 scan engine on the first 256 samples
                outside the tie margin, and accuracy >= 0.9 against the
                planted truth.
@@ -58,16 +65,20 @@ Phases, one line each (any failure raises and the exit code is non-zero):
                posterior_scores_kernel, its call at one classifier) against
                its plain PyTorch version on the same CUDA tensors: H
                64..4,096, A 1..1,024, C 1 and 8, with padded slots,
-               all-missing samples, a forced exact tie and a case of ordered
-               pairs within and across alleles; dmin exact, S and total at
-               rtol 2e-4 and atol 1e-30, two runs bitwise equal. Then a
+               all-missing samples, a forced exact tie, the three
+               heterozygous-word patterns, dominant-allele classifiers (the
+               warp-split cells; one at 300 alleles, where the cells' minima
+               go to device scratch) and a case of ordered pairs within and
+               across alleles; dmin exact, S exactly symmetric, S and total
+               at rtol 2e-4 and atol 1e-30, two runs bitwise equal. Then a
                seeded synthetic model at the published HLA-A model's width
                (100 classifiers, 1,000 SNPs) with 160 alleles and 600-1,600
                haplotypes per classifier, wider than the ensemble kernel
                takes, saved to .npz and loaded back; the kernel timed at the
                scan engine's chunk shape (SCAN_CCHUNK classifiers) and at one
                classifier beside its plain version; predict(device="cuda")
-               on 1,024 samples twice, the second timed. Checks that the
+               on 1,024 samples twice, the second timed, and the repeat
+               checks of phase 4. Checks that the
                scoring kernel ran in the timed run and the ensemble kernel
                did not, accuracy >= 0.9, sane probabilities and matching, and
                calls equal to the float64 scan engine on the first 64 samples
@@ -213,21 +224,57 @@ def phase_build():
           f"{time.perf_counter() - t0:.2f} s")
 
 
-def _case(rng, C, H, A, N, dev):
+#: genotype patterns the scoring kernels' distance branches on: a
+#: heterozygous code in each of the four 32-SNP words, in none, and only in
+#: word 3 (SNP slots 96..127)
+HET_PATTERNS = ("all4", "none", "word3")
+
+
+def het_codes(rng, pattern, shape):
+    """int8 genotype codes of `shape` (last axis 128) drawn from {0, 1, 2,
+    3 = missing} with heterozygous codes (1) placed by `pattern`, one of
+    HET_PATTERNS, or anywhere for None."""
+    if pattern is None:
+        return rng.integers(0, 4, shape).astype(np.int8)
+    g = rng.choice(np.array([0, 2, 3], np.int8), shape)
+    if pattern == "all4":
+        g[..., 64:] = rng.integers(0, 4, (*shape[:-1], 64))
+        g[..., [5, 37, 69, 101]] = 1
+    elif pattern == "word3":
+        g[..., 96:] = rng.integers(0, 4, (*shape[:-1], 32))
+        g[..., 100] = 1
+    elif pattern != "none":
+        raise ValueError(f"unknown pattern {pattern!r}")
+    return g
+
+
+def dominant_alleles(rng, C, H, A, lo=0):
+    """Sorted allele indices [C, H] in [lo, A) of which about 7 in 8 are lo:
+    one allele holds most haplotypes, so its cells hold thousands of pairs
+    and the kernels split them over a warp."""
+    allele = rng.integers(lo, A, (C, H))
+    allele[rng.random((C, H)) < 0.875] = lo
+    return np.sort(allele, axis=1)
+
+
+def _case(rng, C, H, A, N, dev, pattern=None, dominant=False):
     """Random kernel inputs with padded slots, all-missing samples (0, 1),
     a zero-weight sample (3) and an exact tie: in classifier 0, alleles 0,
     1 and 2 hold one haplotype each, 0 and 1 identical with equal frequency,
-    and sample 2 is haplotypes 0 + 2, so Q[0,2] == Q[1,2] is its maximum."""
+    and sample 2 is haplotypes 0 + 2, so Q[0,2] == Q[1,2] is its maximum.
+    The other samples' codes follow `pattern` (het_codes); with `dominant`
+    the other haplotypes' alleles are dominant_alleles'."""
     from hibag_tpu_torch.ops.ens_acc import pack_haplotypes
 
     bits = rng.integers(0, 2, (C, H, 128), dtype=np.uint8)
     freq = rng.dirichlet(np.ones(H), C)
     freq[:, H - H // 8:] = 0.0
-    allele = np.sort(rng.integers(3, A, (C, H)), axis=1)
+    allele = (dominant_alleles(rng, C, H, A, lo=3) if dominant
+              else np.sort(rng.integers(3, A, (C, H)), axis=1))
     allele[0, :3] = [0, 1, 2]
     bits[0, 1] = bits[0, 0]
     freq[0, 1] = freq[0, 0]
-    g = rng.integers(0, 4, (C, N, 128)).astype(np.int8)
+    g = het_codes(rng, pattern, (C, N, 128))
     g[:, :2] = 3
     g[0, 2] = bits[0, 0] + bits[0, 2]
     wgt = rng.random((C, N)).astype(np.float32)
@@ -243,32 +290,43 @@ def phase_kernel(dev, hap, g, w, A):
     from hibag_tpu_torch.ops.scoring import posterior_scores, unordered_from_S
 
     rng = np.random.default_rng(SEED)
-    cases = [(H, a) for H in (64, 128, 256, 512) for a in (9, 48, 128)]
-    cases.append((1024, 128))
-    for H, a in cases:
-        ch, cg, cw = _case(rng, 3, H, a, 64, dev)
+    cases = [(H, a, None, False) for H in (64, 128, 256, 512)
+             for a in (9, 48, 128)]
+    cases.append((1024, 128, None, False))
+    cases += [(256, 48, p, False) for p in HET_PATTERNS]
+    cases += [(1024, 48, None, True), (512, 9, "word3", True)]
+    for H, a, pattern, dominant in cases:
+        ch, cg, cw = _case(rng, 3, H, a, 64, dev, pattern, dominant)
         S = posterior_scores(unpack_bits(ch.hb[0]), ch.freq[0], ch.allele[0],
                              cg[0, 2:3], a)["S"]
         Q = unordered_from_S(S)[0]
+        label = (f"H={H} A={a}" + (f" {pattern}" if pattern else "")
+                 + (" dominant" if dominant else ""))
         if not (Q[0, 2] == Q[1, 2] == Q.max()):
-            raise AssertionError(f"H={H} A={a}: the tie was not forced")
+            raise AssertionError(f"{label}: the tie was not forced")
         for majority in (False, True):
-            ens, dmin, total = ensemble_accumulate(ch, cg, cw, a, majority)
+            out = ensemble_accumulate(ch, cg, cw, a, majority)
+            out2 = ensemble_accumulate(ch, cg, cw, a, majority)
             torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(out, out2)):
+                raise AssertionError(f"{label}: two runs differ")
+            ens, dmin, total = out
             ens_r, dmin_r, total_r = ensemble_accumulate_ref(ch, cg, cw, a,
                                                              majority)
             if not torch.equal(dmin, dmin_r):
-                raise AssertionError(f"H={H} A={a}: dmin differs")
-            _close(f"H={H} A={a} total", total, total_r)
-            ea, er = _close(f"H={H} A={a} majority={majority} ens", ens, ens_r)
-            print(f"[kernel] H={H} A={a} {'majority' if majority else 'prob'}"
-                  f": dmin exact, ens max abs {ea:.3e} rel {er:.3e}")
+                raise AssertionError(f"{label}: dmin differs")
+            _close(f"{label} total", total, total_r)
+            ea, er = _close(f"{label} majority={majority} ens", ens, ens_r)
+            print(f"[kernel] {label} {'majority' if majority else 'prob'}: "
+                  f"two runs bitwise equal, dmin exact, ens max abs {ea:.3e} "
+                  f"rel {er:.3e}")
 
     # at the slice's shape, on the slice's own tensors
     ens, dmin, total = ensemble_accumulate(hap, g, w, A)
-    ens2, _, _ = ensemble_accumulate(hap, g, w, A)
+    again = ensemble_accumulate(hap, g, w, A)
     torch.cuda.synchronize()
-    spread = (ens - ens2).abs().max().item()
+    if not all(torch.equal(x, y) for x, y in zip((ens, dmin, total), again)):
+        raise AssertionError("slice shape: two runs differ")
     ens_r, dmin_r, total_r = ensemble_accumulate_ref(hap, g, w, A)
     if not torch.equal(dmin, dmin_r):
         raise AssertionError("slice shape: dmin differs")
@@ -281,8 +339,8 @@ def phase_kernel(dev, hap, g, w, A):
                    + 4 * N * A * A + 8 * C * N, popc=_pair_popc(hap.nh, g),
                    flops=2 * _pairs(hap.nh, N))
     print(f"[kernel] slice shape C={C} N={N} H={H} A={A}: ens max "
-          f"abs {max_abs:.3e} rel {max_rel:.3e}, run-to-run max abs "
-          f"{spread:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"abs {max_abs:.3e} rel {max_rel:.3e}, two runs bitwise equal; "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
           f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, **bound}
 
@@ -536,6 +594,24 @@ def _train_bound(name, c):
                   flops=12 * C * pairs)
 
 
+def _repeatable(label, predict, model, geno, timed):
+    """Raises unless predict() on the card is bitwise repeatable, as
+    tests/test_parity.py asks of hibag_tpu: the timed call's best guesses,
+    their probability and matching equal one more call's, and two calls
+    with_prob=True give equal postprob too. (The timed call leaves out the
+    posterior table, whose host-side assembly would dominate its time.)"""
+    def check(r1, r2, names):
+        for name in names:
+            if not np.array_equal(getattr(r1, name), getattr(r2, name)):
+                raise AssertionError(f"{label}: two predict() calls differ "
+                                     f"in {name}")
+    names = ("allele1", "allele2", "prob", "matching")
+    check(timed, predict(model, geno, device="cuda"), names)
+    check(predict(model, geno, device="cuda", with_prob=True),
+          predict(model, geno, device="cuda", with_prob=True),
+          ("postprob",) + names)
+
+
 def _same_classifiers(m1, m2):
     return sum(np.array_equal(a.snp_index, b.snp_index)
                and np.array_equal(a.hap_bits, b.hap_bits)
@@ -689,22 +765,23 @@ def _ordered_pair_case(dev):
     return hap, torch.from_numpy(g).to(dev), want
 
 
-def _score_case(rng, C, H, A, N, dev):
+def _score_case(rng, C, H, A, N, dev, pattern=None, dominant=False):
     """Scoring-kernel inputs (hap, g) and whether classifier 0 forces the
     exact tie S[2][0,2] == S[2][1,2]: _case's inputs for A >= 4 (N >= 4),
-    else
-    random haplotypes over A alleles with padded slots and all-missing
-    samples 0 and 1."""
+    else random haplotypes over A alleles with padded slots and all-missing
+    samples 0 and 1; codes by `pattern`, alleles dominant_alleles' with
+    `dominant`."""
     from hibag_tpu_torch.ops.ens_acc import pack_haplotypes
 
     if A >= 4:
-        hap, g, _ = _case(rng, C, H, A, N, dev)
+        hap, g, _ = _case(rng, C, H, A, N, dev, pattern, dominant)
         return hap, g, True
     bits = rng.integers(0, 2, (C, H, 128), dtype=np.uint8)
     freq = rng.dirichlet(np.ones(H), C)
     freq[:, H - H // 8:] = 0.0
-    allele = np.sort(rng.integers(0, A, (C, H)), axis=1)
-    g = rng.integers(0, 4, (C, N, 128)).astype(np.int8)
+    allele = (dominant_alleles(rng, C, H, A) if dominant
+              else np.sort(rng.integers(0, A, (C, H)), axis=1))
+    g = het_codes(rng, pattern, (C, N, 128))
     g[:, :2] = 3
     return (pack_haplotypes(bits, freq, allele, A, dev),
             torch.from_numpy(g).to(dev), False)
@@ -759,9 +836,14 @@ def phase_wide_kernels(dev):
              (1, 256, 48, 16), (8, 512, 48, 8), (1, 1024, 128, 8),
              (8, 1024, 128, 8), (1, 1600, 160, 8), (8, 1600, 160, 4),
              (8, 4096, 160, 4), (1, 4096, 1024, 4), (8, 640, 1024, 4)]
-    for C, H, A, N in cases:
-        hap, g, tie = _score_case(rng, C, H, A, N, dev)
-        label = f"C={C} H={H} A={A} N={N}"
+    cases = [c + (None, False) for c in cases]
+    cases += [(8, 1024, 160, 8, p, False) for p in HET_PATTERNS]
+    cases += [(1, 4096, 160, 4, None, True), (8, 1024, 2, 8, "all4", True),
+              (2, 1024, 300, 4, "word3", True)]
+    for C, H, A, N, pattern, dominant in cases:
+        hap, g, tie = _score_case(rng, C, H, A, N, dev, pattern, dominant)
+        label = (f"C={C} H={H} A={A} N={N}" + (f" {pattern}" if pattern else "")
+                 + (" dominant" if dominant else ""))
         e = _check_scores(hap, g, A, label, tie)
         err = max(err, e)
         print(f"[wide-kernel] {label}: bitwise deterministic, dmin exact, "
@@ -840,6 +922,7 @@ def phase_wide(dev, card):
     res = predict(model, geno, device="cuda")
     elapsed = time.perf_counter() - t0
     launches, ens_launches = ps.LAUNCHES, ens_acc.LAUNCHES
+    _repeatable("wide", predict, model, geno, res)
     peak = torch.cuda.max_memory_allocated(dev)
     chunks = -(-model.n_classifiers // cc)
     if launches < 1 or launches % chunks:
@@ -871,7 +954,8 @@ def phase_wide(dev, card):
           f"({int((nh > ens_acc.MAX_H).sum())} above {ens_acc.MAX_H}); "
           f"{N_WIDE / elapsed:.1f} samples/s ({elapsed * 1e3:.2f} ms, "
           f"SCAN_CCHUNK={cc}), peak device memory {peak / 2**30:.3f} GiB; "
-          f"scoring kernel launches {launches}, ens_acc 0; accuracy "
+          f"scoring kernel launches {launches}, ens_acc 0; two calls "
+          f"bitwise equal; accuracy "
           f"{acc:.4f}; f64 calls equal on {int(clear.sum())}/{N_WIDE_F64} "
           f"clear samples | {card}")
     return {"launches": launches, **timing["ensemble_scores"]}
@@ -917,6 +1001,7 @@ def main():
     launches = ens_acc.LAUNCHES
     if launches < 1:
         raise AssertionError("predict() did not launch the ensemble kernel")
+    _repeatable("slice", predict, model, geno, res)
     t0 = time.perf_counter()
     align_to_model(model, geno)
     t_align = time.perf_counter() - t0
@@ -945,8 +1030,8 @@ def main():
           f"N={N_SLICE}: {rate:.1f} samples/s ({elapsed * 1e3:.2f} ms; "
           f"align_to_model {t_align * 1e3:.2f} ms on the host, kernel "
           f"{timing['ms']:.4f} ms), accuracy {acc:.4f}, kernel launches "
-          f"{launches}, f64 calls equal on {int(clear.sum())}/{N_F64} "
-          f"clear samples | {card}")
+          f"{launches}, two calls bitwise equal, f64 calls equal on "
+          f"{int(clear.sum())}/{N_F64} clear samples | {card}")
 
     train_timing = phase_train_kernels(dev)
     train_launches = phase_train(card)

@@ -1,10 +1,11 @@
-"""Builds the port's CUDA sources (``hibag_tpu_torch/csrc/*.cu``) with nvcc at
-first use and loads the shared library with ctypes.
+"""Builds the port's CUDA sources (``hibag_tpu_torch/csrc/*.cu``, which include
+``csrc/*.cuh``) with nvcc at first use and loads the shared library with
+ctypes.
 
 Each source compiles to an object file in its own nvcc process, all started
 together, and one more nvcc links them. The library goes to
 ``build/hibag_tpu_torch/`` at the root of the checkout, named by a hash of
-the sources and flags, so an edited source builds anew and an unchanged one
+the sources, headers and flags, so an edited source or header builds anew and an unchanged one
 loads the library already there. A missing nvcc or a failed build raises.
 """
 
@@ -42,8 +43,9 @@ def find_nvcc() -> str:
 
 
 def library_path() -> str:
-    """Where the library for the current sources lives."""
-    srcs = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    """Where the library for the current sources and headers lives."""
+    srcs = sorted(glob.glob(os.path.join(CSRC, "*.cu"))
+                  + glob.glob(os.path.join(CSRC, "*.cuh")))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in srcs:
         h.update(os.path.basename(s).encode())
@@ -98,8 +100,10 @@ def load() -> ctypes.CDLL:
     lib.hibag_em_estep.restype = i
     lib.hibag_eval_cand.argtypes = [p] * 15 + [i] * 6 + [p]
     lib.hibag_eval_cand.restype = i
-    lib.hibag_post_scores.argtypes = [p] * 9 + [i] * 4 + [p]
+    lib.hibag_post_scores.argtypes = [p] * 10 + [i] * 4 + [p]
     lib.hibag_post_scores.restype = i
+    lib.hibag_post_scores_scratch.argtypes = [i]
+    lib.hibag_post_scores_scratch.restype = ctypes.c_longlong
     lib.hibag_eval_smem.argtypes = [i] * 3
     lib.hibag_eval_smem.restype = ctypes.c_longlong
     lib.hibag_cuda_error_string.argtypes = [i]

@@ -30,11 +30,13 @@ from .ens_acc import (PackedHaplotypes, check_inputs, pack_haplotypes,
 from .scoring import posterior_scores
 from .train_step import pen_table
 
-#: most haplotype slots per classifier the kernel takes (shared memory: 24
+#: most haplotype slots per classifier the kernel takes (shared memory: 26
 #: bytes a slot); the port's trainer builds at most as many
 MAX_H = 4096
 #: most alleles the kernel takes (S is written to device memory; this bounds
-#: one (classifier, sample)'s output at 4 MiB)
+#: one (classifier, sample)'s output at 4 MiB; above 180 alleles the cells'
+#: running minima take a device scratch of A(A+1) bytes a (classifier,
+#: sample) beside it)
 MAX_A = 1024
 #: most classifiers in one launch (the grid's y dimension)
 MAX_C = 65535
@@ -83,12 +85,17 @@ def ensemble_scores(hap: PackedHaplotypes, g: torch.Tensor, n_alleles: int):
         return S, dmin, total
     lib = _build.load()
     tab = pen_table(dev)
+    # the cells' running minima, where they do not fit in shared memory
+    per = lib.hibag_post_scores_scratch(A)
+    scratch = (torch.empty(C * N * per, dtype=torch.uint8, device=dev)
+               if per else None)
     with torch.cuda.device(dev):
         err = lib.hibag_post_scores(
             hap.hb.data_ptr(), hap.freq.data_ptr(), hap.allele.data_ptr(),
             hap.nh.data_ptr(), g.data_ptr(), tab.data_ptr(), S.data_ptr(),
-            dmin.data_ptr(), total.data_ptr(), C, hap.n_slots, N, A,
-            torch.cuda.current_stream(dev).cuda_stream)
+            dmin.data_ptr(), total.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), C, hap.n_slots,
+            N, A, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         msg = lib.hibag_cuda_error_string(err).decode()
         raise RuntimeError(f"scoring kernel launch failed: {msg} ({err})")

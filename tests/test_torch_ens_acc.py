@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from hibag_tpu.ops.scoring_pallas import ensemble_accumulate_pallas
 from hibag_tpu_torch.models.convert import ensemble_from_jax_prepared
 from hibag_tpu_torch.ops import ens_acc
@@ -27,18 +28,23 @@ def _no_env_overrides(monkeypatch):
             monkeypatch.delenv(k)
 
 
-def _inputs(seed, C, H, N, A, tie=False):
+def _inputs(seed, C, H, N, A, tie=False, pattern=None, dominant=False):
     """hibag_tpu's prepared layout (hb, W, valid) plus codes and weights,
     with padded slots, all-missing samples (0, 1) and a zero-weight sample
     (2). `tie` forces an exact tie in classifier 0 for sample 3: alleles 0,
     1 and 2 hold one haplotype each, 0 and 1 identical with equal frequency,
-    and the sample is haplotypes 0 + 2, so Q[0,2] == Q[1,2] is its best."""
+    and the sample is haplotypes 0 + 2, so Q[0,2] == Q[1,2] is its best.
+    `pattern` places the heterozygous codes (chip_smoke.het_codes);
+    `dominant` gives one allele most haplotypes (chip_smoke.
+    dominant_alleles)."""
     rng = np.random.default_rng(seed)
     hb = (rng.random((C, H, L)) < 0.5).astype(np.float32)
     freq = rng.dirichlet(np.ones(H), C).astype(np.float32)
     freq[:, H - H // 8:] = 0.0
-    allele = np.sort(rng.integers(3 if tie else 0, A, (C, H)), axis=1)
-    g = rng.integers(0, 4, (C, N, L)).astype(np.int8)
+    lo = 3 if tie else 0
+    allele = (chip_smoke.dominant_alleles(rng, C, H, A, lo) if dominant
+              else np.sort(rng.integers(lo, A, (C, H)), axis=1))
+    g = chip_smoke.het_codes(rng, pattern, (C, N, L))
     g[:, :2] = 3
     if tie:
         allele[0, :3] = [0, 1, 2]
@@ -54,8 +60,9 @@ def _inputs(seed, C, H, N, A, tie=False):
     return hb, W, valid, g, wgt
 
 
-def _both(seed, C, H, N, A, majority, tie=False):
-    hb, W, valid, g, wgt = _inputs(seed, C, H, N, A, tie)
+def _both(seed, C, H, N, A, majority, tie=False, pattern=None,
+          dominant=False):
+    hb, W, valid, g, wgt = _inputs(seed, C, H, N, A, tie, pattern, dominant)
     ens_j, dmin_j, total_j = ensemble_accumulate_pallas(
         jnp.asarray(hb), jnp.asarray(W), jnp.asarray(valid), jnp.asarray(g),
         jnp.asarray(wgt[..., None]), (A + 7) // 8 * 8, nb=8, interpret=True,
@@ -88,6 +95,22 @@ def test_matches_pallas_kernel(seed, C, H, A, majority, tie):
     if tie:
         # the first row-major maximum wins: pair (0, 2), not (1, 2); the
         # other classifier holds only alleles >= 3
+        assert ens[3, 0, 2] == 1 and ens[3, 1, 2] == 0
+
+
+@pytest.mark.parametrize("pattern,dominant,majority", [
+    ("all4", False, False), ("none", False, True), ("word3", False, False),
+    (None, True, False), ("word3", True, True)])
+def test_het_patterns_and_dominant_allele(pattern, dominant, majority):
+    """The cases the kernel's distance and cell walk branch on: the sample's
+    heterozygous codes in all four 32-SNP words, in none, only in word 3;
+    and a classifier whose first allele holds most haplotypes."""
+    (ens_j, dmin_j, total_j), (ens, dmin, total) = _both(
+        7, 2, 128, 16, 14, majority, True, pattern, dominant)
+    np.testing.assert_array_equal(dmin, dmin_j)
+    np.testing.assert_allclose(total, total_j, rtol=3e-4)
+    np.testing.assert_allclose(ens, ens_j, rtol=3e-4, atol=1e-7)
+    if majority:
         assert ens[3, 0, 2] == 1 and ens[3, 1, 2] == 0
 
 

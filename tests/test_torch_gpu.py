@@ -65,8 +65,11 @@ def test_kernel_matches_plain_version(cuda, H, A, majority):
     hap, g, wgt = _case(H + A, 3, H, 64, A, cuda)
     before = ens_acc.LAUNCHES
     ens, dmin, total = ens_acc.ensemble_accumulate(hap, g, wgt, A, majority)
+    again = ens_acc.ensemble_accumulate(hap, g, wgt, A, majority)
     torch.cuda.synchronize()
-    assert ens_acc.LAUNCHES == before + 1
+    assert ens_acc.LAUNCHES == before + 2
+    # two runs bitwise equal
+    assert all(torch.equal(x, y) for x, y in zip((ens, dmin, total), again))
     ens_r, dmin_r, total_r = ens_acc.ensemble_accumulate_ref(hap, g, wgt, A,
                                                              majority)
     assert torch.equal(dmin, dmin_r)
@@ -74,6 +77,30 @@ def test_kernel_matches_plain_version(cuda, H, A, majority):
     torch.testing.assert_close(ens, ens_r, rtol=3e-4, atol=1e-7)
     if majority:
         assert ens[3, 0, 2] == 1 and ens[3, 1, 2] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,A,pattern,dominant", [
+    (256, 48, "all4", False), (256, 48, "none", False),
+    (256, 48, "word3", False), (1024, 48, None, True),
+    (512, 9, "word3", True)])
+def test_kernel_het_patterns_and_dominant_allele(cuda, H, A, pattern,
+                                                 dominant):
+    """chip_smoke.py's phase-3 cases the kernel branches on: the sample's
+    heterozygous codes in all four words, in none, only in word 3; a
+    classifier dominated by one allele. Two runs bitwise equal, dmin exact,
+    ens and total at rtol 3e-4, prob and majority voting."""
+    hap, g, wgt = chip_smoke._case(np.random.default_rng(H + A), 3, H, A, 64,
+                                   cuda, pattern, dominant)
+    for majority in (False, True):
+        out = ens_acc.ensemble_accumulate(hap, g, wgt, A, majority)
+        again = ens_acc.ensemble_accumulate(hap, g, wgt, A, majority)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(out, again))
+        ref = ens_acc.ensemble_accumulate_ref(hap, g, wgt, A, majority)
+        assert torch.equal(out[1], ref[1])
+        torch.testing.assert_close(out[2], ref[2], rtol=3e-4, atol=0)
+        torch.testing.assert_close(out[0], ref[0], rtol=3e-4, atol=1e-7)
 
 
 @pytest.mark.gpu
@@ -125,6 +152,45 @@ def test_scores_kernel_matches_plain_version(cuda, C, H, A, N):
     before = post_scores.LAUNCHES
     chip_smoke._check_scores(hap, g, A, f"C={C} H={H} A={A} N={N}", tie)
     assert post_scores.LAUNCHES == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,H,A,pattern,dominant", [
+    (8, 1024, 160, "all4", False), (8, 1024, 160, "none", False),
+    (8, 1024, 160, "word3", False), (1, 4096, 160, None, True),
+    (2, 1024, 300, "word3", True)])
+def test_scores_kernel_het_patterns_and_dominant_allele(cuda, C, H, A,
+                                                        pattern, dominant):
+    """The heterozygous-word patterns and dominant-allele classifiers (whose
+    large cells a warp walks; at 300 alleles the cells' minima take device
+    scratch) through chip_smoke.py's phase-7 checks."""
+    hap, g, tie = chip_smoke._score_case(np.random.default_rng(C + H + A),
+                                         C, H, A, 4, cuda, pattern, dominant)
+    chip_smoke._check_scores(hap, g, A, f"{pattern} dominant={dominant}", tie)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wide", [False, True])
+def test_predict_deterministic_on_the_card(cuda, wide):
+    """Two predict(device="cuda") calls give bitwise-equal postprob and best
+    guesses, through the ensemble kernel and through the scan engine's
+    scoring kernel."""
+    from hibag_tpu_torch import predict
+    from hibag_tpu_torch.utils.synthetic import (synthetic_cohort,
+                                                 synthetic_model)
+
+    kw = (dict(n_alleles=130, snp_range=(20, 40), hap_range=(1030, 1100),
+               max_variants=20, mutation=0.1) if wide else dict(n_alleles=14))
+    model, pool = synthetic_model(7, n_classifiers=6, n_snp=300, **kw)
+    geno, _, _ = synthetic_cohort(model, pool, 64, 8)
+    before = (ens_acc.LAUNCHES, post_scores.LAUNCHES)
+    r1 = predict(model, geno, device="cuda", with_prob=True)
+    r2 = predict(model, geno, device="cuda", with_prob=True)
+    launched = (ens_acc.LAUNCHES - before[0], post_scores.LAUNCHES - before[1])
+    assert launched[1 if wide else 0] > 0 and launched[0 if wide else 1] == 0
+    np.testing.assert_array_equal(r1.postprob, r2.postprob)
+    np.testing.assert_array_equal(r1.allele1, r2.allele1)
+    np.testing.assert_array_equal(r1.allele2, r2.allele2)
 
 
 @pytest.mark.gpu

@@ -68,6 +68,26 @@ def test_ensemble_scores_matches_pallas_kernel(seed, A, tie):
         assert S[0, 3, 0, 2] == S[0, 3, 1, 2] > 0
 
 
+@pytest.mark.parametrize("pattern,dominant", [
+    ("all4", False), ("none", False), ("word3", False), (None, True),
+    ("all4", True)])
+def test_het_patterns_and_dominant_allele(pattern, dominant):
+    """The cases the kernel's distance and cell walk branch on: heterozygous
+    codes in all four 32-SNP words, in none, only in word 3; and a
+    classifier whose first allele holds most haplotypes."""
+    C, H, N, A = 2, 128, 8, 14
+    hb, W, valid, g, _ = _inputs(8, C, H, N, A, True, pattern, dominant)
+    alpha, u, m1 = geno_coefficients(jnp.asarray(g))
+    want = scoring_pallas.ensemble_scores_pallas(
+        jnp.asarray(hb), jnp.asarray(W), jnp.asarray(valid), alpha[..., None],
+        u, m1, interpret=True)
+    hap = ensemble_from_jax_prepared(hb, W, valid, "cpu")
+    got = post_scores.ensemble_scores(hap, torch.from_numpy(g), A)
+    _assert_scores(got, want, A)
+    S = got[0]
+    assert S[0, 3, 0, 2] == S[0, 3, 1, 2] > 0
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_classifier_posteriors_matches_pallas(seed):
     bits, freq, allele, geno, A = _classifier(seed)

@@ -102,6 +102,30 @@ def test_response_equals_prob_argmax_and_engines_agree(case):
     assert prob.accuracy_vs(*truth) > 0.9
 
 
+def _wide(model):
+    """One classifier of `model` with 129 alleles named: wider than the
+    ensemble kernel takes, so predict() routes it to the scan engine."""
+    wide = model.subset_classifiers(1)
+    wide.hla_alleles = [f"{i:03d}:01" for i in range(129)]
+    assert not ens_acc.fits(wide.pack().hap_bits.shape[1], 129)
+    return wide
+
+
+@pytest.mark.parametrize("engine", ["ensemble", "scan"])
+def test_prediction_deterministic(case, engine):
+    """tests/test_parity.py::test_prediction_deterministic for the port: two
+    predict() calls give bitwise-equal postprob and best guesses, on the
+    ensemble engine and on the scan engine of a wide model."""
+    model, _, geno, _, _ = case
+    if engine == "scan":
+        model = _wide(model)
+    r1 = hibag_tpu_torch.predict(model, geno, device="cpu", with_prob=True)
+    r2 = hibag_tpu_torch.predict(model, geno, device="cpu", with_prob=True)
+    np.testing.assert_array_equal(r1.postprob, r2.postprob)
+    np.testing.assert_array_equal(r1.allele1, r2.allele1)
+    np.testing.assert_array_equal(r1.allele2, r2.allele2)
+
+
 def test_npz_from_hibag_tpu_and_jax_prepared_route(case, tmp_path):
     model, jmodel, geno, _, _ = case
     path = str(tmp_path / "from_jax.npz")
