@@ -345,16 +345,20 @@ def phase_kernel(dev, hap, g, w, A):
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, **bound}
 
 
-def _train_case(rng, K, C, H, A, S, dev, n_sel=24, typed=True):
+def _train_case(rng, K, C, H, A, S, dev, n_sel=24, typed=True,
+                het_words=None, twins=((0, 1),)):
     """Kernel inputs of the training step: haplotypes in frequency order
     (alleles not grouped) with empty slots; samples 0 and 1 all-missing
     (sample 0 with weight), sample 2 of weight 0; frequencies dropped per
-    candidate for the evaluation; candidate 1's genotype column and
-    frequencies equal candidate 0's. With ``typed`` the other samples carry
-    two of the first 16 haplotypes, which no candidate drops, as a training
-    panel does; else random codes, so that a sample's true pair can lie far
-    from its nearest pair and score in float32's denormal range (as after
-    erase_rare drops a sample's true haplotypes)."""
+    candidate for the evaluation; for each (c, d) in ``twins`` (d < C),
+    candidate d's genotype column and frequencies equal candidate c's. With
+    ``typed`` the other samples carry two of the first 16 haplotypes, which
+    no candidate drops, as a training panel does; else random codes, so that
+    a sample's true pair can lie far from its nearest pair and score in
+    float32's denormal range (as after erase_rare drops a sample's true
+    haplotypes). With ``het_words`` = w (and n_sel = 128) those samples hold
+    heterozygous codes in exactly the last w of the four 32-SNP words: the
+    others' are made missing, and each kept word gets one."""
     from hibag_tpu_torch.models.em import match_pairs, match_pairs_packed
 
     L = 128
@@ -372,6 +376,13 @@ def _train_case(rng, K, C, H, A, S, dev, n_sel=24, typed=True):
                                + bits[:, pair[1, 3:], :n_sel])
     else:
         geno[:, 3:, :n_sel] = rng.integers(0, 3, (K, S - 3, n_sel))
+    if het_words is not None:
+        for w in range(4):
+            word = geno[:, 3:, 32 * w:32 * (w + 1)]
+            if w < 4 - het_words:
+                word[word == 1] = 3
+            else:
+                word[..., 5] = 1
     a12 = np.sort(allele[0][pair], 0).astype(np.int32)
     B = rng.multinomial(S, np.ones(S) / S, size=K).astype(np.float32)
     B[:, 0] = 1.0
@@ -385,10 +396,11 @@ def _train_case(rng, K, C, H, A, S, dev, n_sel=24, typed=True):
     drop[..., :16] = False
     fAe = np.where(drop[0], 0, fA).astype(np.float32)
     fBe = np.where(drop[1], 0, fB).astype(np.float32)
-    if C > 1:
-        gc[:, 1] = gc[:, 0]
-        for x in (fA, fB, fAe, fBe):
-            x[:, 1] = x[:, 0]
+    for c0, c1 in twins:
+        if c1 < C:
+            gc[:, c1] = gc[:, c0]
+            for x in (fA, fB, fAe, fBe):
+                x[:, c1] = x[:, c0]
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
     c = dict(bits=t(bits), freq=t(freq), allele=t(allele), geno=t(geno),
              a1=t(a12[0]), a2=t(a12[1]), B=t(B), gc=t(gc), fA=t(fA),
@@ -417,12 +429,13 @@ def _eval_call(c):
     return ts.evaluate_candidates_kernel, ts.evaluate_candidates_ref, args
 
 
-def _check_train_kernel(name, kern, ref, args, label, check_ll=True):
+def _check_train_kernel(name, kern, ref, args, label, check_ll=True,
+                        twins=((0, 1),)):
     """Runs `kern` twice and `ref` once on `args`: the two runs must agree
-    bitwise, EM outputs at rtol 1e-4, evaluation counts exactly (the tied
-    candidates 0 and 1 too) and, with `check_ll`, -2logLik at rtol 1e-4.
-    Returns the max abs error (of -2logLik when not checked: its max rel
-    error)."""
+    bitwise, EM outputs at rtol 1e-4, evaluation counts exactly, the
+    identical candidates of each pair in `twins` bitwise equal in counts and
+    -2logLik and, with `check_ll`, -2logLik at rtol 1e-4. Returns the max
+    abs error (of -2logLik when not checked: its max rel error)."""
     out = kern(*args)
     out2 = kern(*args)
     torch.cuda.synchronize()
@@ -436,10 +449,12 @@ def _check_train_kernel(name, kern, ref, args, label, check_ll=True):
     if not torch.equal(out[0], want[0]):
         raise AssertionError(f"{name} {label}: accuracy counts differ in "
                              f"{int((out[0] != want[0]).sum())} places")
-    if out[0].shape[1] > 1 and not (torch.equal(out[0][:, 0], out[0][:, 1])
-                                    and torch.equal(out[1][:, 0],
-                                                    out[1][:, 1])):
-        raise AssertionError(f"{name} {label}: tied candidates differ")
+    for c0, c1 in twins:
+        if c1 < out[0].shape[1] and not (
+                torch.equal(out[0][:, c0], out[0][:, c1])
+                and torch.equal(out[1][:, c0], out[1][:, c1])):
+            raise AssertionError(f"{name} {label}: identical candidates "
+                                 f"{c0} and {c1} differ")
     if not check_ll:
         rel = (out[1].double() - want[1].double()).abs() \
             / want[1].double().abs().clamp_min(1e-30)
@@ -547,6 +562,7 @@ def phase_train_kernels(dev):
           f"scores below 2^-100 too differs by max rel {rel:.3e}; without "
           f"them max abs err {e:.3e}")
     _check_em_tiers(dev)
+    _check_eval_cases(rng, dev)
 
     # at the training slice's shape
     c = _train_case(rng, 8, 17, 256, 14, 1024, dev, n_sel=16)
@@ -562,19 +578,116 @@ def phase_train_kernels(dev):
         bound = _train_bound(name, c)
         timing[name] = {"max_abs_err": err[name], "ms": ms,
                         "plain_ms": plain_ms, **bound}
+        extra = ""
+        if name == "evaluate_candidates_kernel":
+            old = _train_bound(name, c, flops_per_term=12)
+            extra = (f"; bound at 12 float operations per pair-candidate "
+                     f"term {old['bound_ms']:.4f} ms ({old['bound_by']}); "
+                     f"plan (M, Cc, fq_shared, scratch_shared, S) "
+                     f"{_eval_plan(c)}")
         print(f"[train-kernel] {name} {label}: bitwise deterministic, max "
               f"abs err {e:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+              f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})"
+              f"{extra}")
     return timing
 
 
-def _train_bound(name, c):
+def _eval_plan(c, budget=None):
+    """The evaluation kernel's plan (ops/train_step.py:eval_plan) for
+    _train_case's inputs c, under EVAL_SMEM_BYTES or `budget`."""
+    from hibag_tpu_torch.ops import _build
+    from hibag_tpu_torch.ops import train_step as ts
+
+    nok = ((c["fAe"] > 0) | (c["fBe"] > 0)).any(dim=1).sum(1)
+    K, C, _ = c["fAe"].shape
+    saved = ts.EVAL_SMEM_BYTES
+    ts.EVAL_SMEM_BYTES = budget or saved
+    try:
+        return ts.eval_plan(int(nok.max()), c["A"], C, K,
+                            int(c["geno"].shape[1]),
+                            _build.load().hibag_eval_smem)
+    finally:
+        ts.EVAL_SMEM_BYTES = saved
+
+
+def _check_eval_plans(c, label):
+    """The evaluation kernel on c under shared-memory budgets that force
+    each of its four plans at a chunk of 4 candidates (frequencies and
+    scratch in shared memory, frequencies only, scratch only, neither):
+    every plan must give bitwise the default plan's counts and -2logLik."""
+    from hibag_tpu_torch.ops import _build
+    from hibag_tpu_torch.ops import train_step as ts
+
+    kern, _, args = _eval_call(c)
+    want = kern(*args)
+    M, _, _, _, _ = _eval_plan(c)
+    smem = _build.load().hibag_eval_smem
+    saved = ts.EVAL_SMEM_BYTES
+    seen = []
+    try:
+        for f, sc in ((1, 1), (1, 0), (0, 1), (0, 0)):
+            budget = int(smem(M, c["A"], 4, f, sc))
+            plan = _eval_plan(c, budget)
+            if plan[1:4] != (4, f, sc):
+                raise AssertionError(f"{label}: budget {budget} gave plan "
+                                     f"{plan}, not Cc=4 {(f, sc)}")
+            ts.EVAL_SMEM_BYTES = budget
+            got = kern(*args)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                raise AssertionError(f"{label}: plan {plan} differs from the "
+                                     "default plan")
+            seen.append(plan)
+    finally:
+        ts.EVAL_SMEM_BYTES = saved
+    return seen
+
+
+#: identical candidates across a float4 and chunk boundary (3/4, 7/8) and
+#: within the last float4 of 64 (62/63)
+EVAL_TWINS = ((0, 1), (3, 4), (7, 8), (62, 63))
+
+
+def _check_eval_cases(rng, dev):
+    """Phase 3b's evaluation-only cases: samples with heterozygous codes in
+    0..4 of the four 32-SNP words (the kernel's distance is compiled per
+    count), C=64 with EVAL_TWINS at H=256 and at H=4,096 (where the
+    frequencies go in chunks of 4 candidates), and the four shared-memory
+    plans on one input. Counts exact, -2logLik at rtol 1e-4, two runs and
+    the twins bitwise equal."""
+    name = "evaluate_candidates_kernel"
+    for nw in range(5):
+        c = _train_case(rng, 2, 17, 256, 14, 64, dev, n_sel=128,
+                        het_words=nw)
+        label = f"K=2 C=17 H=256 A=14 S=64 het words {nw}"
+        e = _check_train_kernel(name, *_eval_call(c), label)
+        print(f"[train-kernel] {name} {label}: bitwise deterministic, max "
+              f"abs err {e:.3e}")
+    for K, H, S in ((2, 256, 64), (1, 4096, 16)):
+        c = _train_case(rng, K, 64, H, 14, S, dev, twins=EVAL_TWINS)
+        label = f"K={K} C=64 H={H} A=14 S={S} twins {EVAL_TWINS}"
+        e = _check_train_kernel(name, *_eval_call(c), label,
+                                twins=EVAL_TWINS)
+        print(f"[train-kernel] {name} {label}: plan {_eval_plan(c)}; twins "
+              f"bitwise equal, bitwise deterministic, max abs err {e:.3e}")
+    c = _train_case(rng, 2, 17, 256, 14, 64, dev, twins=EVAL_TWINS)
+    plans = _check_eval_plans(c, "K=2 C=17 H=256 A=14 S=64")
+    print(f"[train-kernel] {name} K=2 C=17 H=256 A=14 S=64: plans "
+          f"(M, Cc, fq_shared, scratch_shared, S) {plans} bitwise equal to "
+          f"the default {_eval_plan(c)}")
+
+
+def _train_bound(name, c, flops_per_term=None):
     """_bound of a training kernel on _train_case's inputs c. EM: the mask
     (int8, or 1 bit a pair packed) and frequencies in, dfA, dfB and dll out;
     per candidate 2 adds per set mask entry and 16 float operations per
     active row (one with a set entry) of a sample. Evaluation: _pair_popc's
-    popcounts over the ok haplotypes, and 12 float operations per such pair,
-    sample and candidate."""
+    popcounts over the ok haplotypes; per candidate and sample, 2 FMAs per
+    unordered pair of them (rA += pen fA_j, rB += pen fB_j) and 2 per ok
+    slot i and allele b >= i's with ok slots (folding rA, rB into the
+    cell), 4 float operations each. With `flops_per_term`, that many per
+    pair, sample and candidate instead (the count before the fold was
+    factorised: 12)."""
     K, C, H = c["fA"].shape
     N = c["geno"].shape[1]
     if name.startswith("em_estep"):
@@ -590,8 +703,19 @@ def _train_bound(name, c):
     nbytes = (4 * c["bits"].numel() + 4 * c["allele"].numel()
               + 8 * K * C * H + c["gc"].numel() + c["geno"].numel()
               + 8 * N + c["oob"].numel() + 4 * c["B"].numel() + 8 * K * C)
-    return _bound(nbytes, popc=_pair_popc(ok.sum(1), c["geno"]),
-                  flops=12 * C * pairs)
+    popc = _pair_popc(ok.sum(1), c["geno"])
+    if flops_per_term is not None:
+        return _bound(nbytes, popc=popc, flops=flops_per_term * C * pairs)
+    A = c["A"]
+    cnt = torch.zeros((K, A + 1), dtype=torch.float64, device=ok.device)
+    cnt.scatter_add_(1, torch.where(ok, c["allele"].long(), A),
+                     torch.ones_like(ok, dtype=torch.float64))
+    cnt = cnt[:, :A]
+    # alleles b >= a with ok slots, for each a
+    later = (cnt > 0).double().flip(1).cumsum(1).flip(1)
+    row_cells = float((cnt * later).sum())
+    return _bound(nbytes, popc=popc,
+                  flops=4 * C * (pairs + N * row_cells))
 
 
 def _repeatable(label, predict, model, geno, timed):

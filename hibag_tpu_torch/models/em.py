@@ -407,10 +407,16 @@ def _evaluate_one(bits, allele, fA, fB, g_cand, geno_sel, a1, a2, is_oob, B,
         g2 = torch.maximum(b // A, b % A)
         ta1, ta2 = a1[s:e].long(), a2[s:e].long()
         cnt = compare_count(g1, g2, ta1[None], ta2[None])
+        # a total or true-pair score below the smallest normal (FLT_MIN in
+        # float32) counts as 0, as hibag_tpu reads it when XLA flushes every
+        # denormal term of the sum
+        tiny = torch.finfo(dt).tiny
+        total = torch.where(total >= tiny, total, 0.0)
         acc += torch.where(is_oob[s:e][None] & (total > 0), cnt,
                            0).sum(1).to(torch.int32)
         tq = Sc[:, torch.arange(n, device=fA.device), ta1, ta2]
         tq = tq * torch.where(ta1 == ta2, 1.0, 2.0)[None].to(dt)
+        tq = torch.where(tq >= tiny, tq, 0.0)
         post = tq / total.clamp_min(1e-37)
         ll += -2.0 * (B[s:e][None].to(dt)
                       * torch.log(post.clamp_min(1e-37))).sum(1)

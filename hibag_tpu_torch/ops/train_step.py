@@ -32,8 +32,12 @@ EVAL_MAX_A = 128
 #: most candidates either kernel takes
 MAX_C = 64
 #: shared memory the evaluation kernel may ask for (of the 227 KB a block
-#: can have on the H100)
-EVAL_SMEM_BYTES = 200 * 1024
+#: can have on the H100, less its static scratch)
+EVAL_SMEM_BYTES = 224 * 1024
+#: blocks the evaluation kernel aims for: a block takes
+#: ceil(K * N / EVAL_BLOCKS) samples of one classifier (8 blocks for each of
+#: the H100's 132 SMs)
+EVAL_BLOCKS = 8 * 132
 #: sample groups of the EM kernel: a block owns a run of samples, the
 #: number of runs depends on S only
 EM_MAX_GROUPS = 64
@@ -210,6 +214,55 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)
 
 
+def eval_layout(bits, allele, fA, fB, n_alleles):
+    """The evaluation kernel's view of a batch, plain PyTorch: each
+    classifier's ok slots (fA > 0 or fB > 0 for some candidate) first, in a
+    stable sort by allele, the others after. Returns (hb int32 [K, H, 4]
+    their packed bits; al int32 [K, H] their alleles, n_alleles past the ok
+    slots; fq float32 [K, H, NG, 2, 4], NG = ceil(C / 4): slot i's fA
+    (fq[k, i, g, 0]) and fB (fq[k, i, g, 1]) of candidates 4g..4g+3, 0 past
+    C; nok int32 [K] the ok slots)."""
+    K, C, H = fA.shape
+    A = n_alleles
+    ok = ((fA > 0) | (fB > 0)).any(dim=1)
+    key = torch.where(ok, allele.to(torch.int64), A)
+    order = torch.sort(key, dim=1, stable=True).indices
+    hb = pack_bits(bits.gather(1, order[..., None].expand(-1, -1,
+                                                          MAXNUM_SNP)))
+    idx = order[:, None, :].expand(-1, C, -1)
+    NG = -(-C // 4)
+    fq = torch.zeros((K, H, NG * 4, 2), dtype=torch.float32,
+                     device=fA.device)
+    fq[:, :, :C, 0] = fA.gather(2, idx).transpose(1, 2)
+    fq[:, :, :C, 1] = fB.gather(2, idx).transpose(1, 2)
+    fq = fq.reshape(K, H, NG, 4, 2).transpose(3, 4).contiguous()
+    return (hb, key.gather(1, order).to(torch.int32), fq,
+            ok.sum(1).to(torch.int32))
+
+
+def eval_plan(m_max, n_alleles, C, K, N, smem_bytes):
+    """How the evaluation kernel runs a batch whose classifiers hold at most
+    m_max ok slots: (M, Cc, fq_shared, scratch_shared, S) with M = m_max
+    rounded up to 4, Cc the candidates a block takes at a time (a multiple
+    of 4), whether their frequencies and the per-sample scratch and grids
+    sit in shared memory (else device memory), and S the samples a block
+    takes. The first of (frequencies and scratch shared, frequencies shared,
+    scratch shared, neither) that fits EVAL_SMEM_BYTES, each at the largest
+    Cc that fits; `smem_bytes(M, A, Cc, fq_shared, scratch_shared)` is the
+    kernel's shared memory. Raises when not even the slot records fit."""
+    M = max(4, -(-m_max // 4) * 4)
+    Cp = -(-C // 4) * 4
+    S = max(1, -(-K * N // EVAL_BLOCKS))
+    for fq_shared, scratch_shared in ((1, 1), (1, 0), (0, 1), (0, 0)):
+        for Cc in range(Cp, 0, -4):
+            if smem_bytes(M, n_alleles, Cc, fq_shared,
+                          scratch_shared) <= EVAL_SMEM_BYTES:
+                return M, Cc, fq_shared, scratch_shared, S
+    raise ValueError(f"{m_max} haplotype slots do not fit the evaluation "
+                     f"kernel's shared memory (EVAL_SMEM_BYTES="
+                     f"{EVAL_SMEM_BYTES})")
+
+
 def evaluate_candidates_kernel(bits, allele, fA, fB, g_cand, geno_sel, a1,
                                a2, is_oob, B, n_alleles):
     """OOB accuracy count and in-bag -2logLik of every candidate of K
@@ -230,42 +283,33 @@ def evaluate_candidates_kernel(bits, allele, fA, fB, g_cand, geno_sel, a1,
     N = geno_sel.shape[1]
     A = n_alleles
     dev = fA.device
-    lib = _build.load()
-    ncell = A * (A + 1) // 2
-    fixed = int(lib.hibag_eval_smem(H, A, 0))
-    Cg = min(C, (EVAL_SMEM_BYTES - fixed) // (4 * ncell))
-    if Cg < 1:
-        raise ValueError(f"H={H} and A={A} leave no shared memory for one "
-                         f"candidate's grid (EVAL_SMEM_BYTES="
-                         f"{EVAL_SMEM_BYTES})")
-    # ok haplotypes first, grouped by allele in a stable order
-    ok = ((fA > 0) | (fB > 0)).any(dim=1)
-    key = torch.where(ok, allele.to(torch.int64), A)
-    order = torch.sort(key, dim=1, stable=True).indices
-    counts = torch.zeros((K, A + 1), dtype=torch.int64, device=dev)
-    counts.scatter_add_(1, key, torch.ones_like(key))
-    aoff = torch.zeros((K, A + 1), dtype=torch.int32, device=dev)
-    aoff[:, 1:] = counts[:, :A].cumsum(1).to(torch.int32)
-    hb = pack_bits(bits.gather(1, order[..., None].expand(-1, -1,
-                                                          MAXNUM_SNP)))
-    idx = order[:, None, :].expand(-1, C, -1)
-    fA_s = fA.gather(2, idx).contiguous()
-    fB_s = fB.gather(2, idx).contiguous()
-    oob = is_oob.to(torch.uint8)
-    accp = torch.empty((K, C, N), dtype=torch.int32, device=dev)
-    llp = torch.empty((K, C, N), dtype=torch.float32, device=dev)
     acc = torch.empty((K, C), dtype=torch.int32, device=dev)
     ll = torch.empty((K, C), dtype=torch.float32, device=dev)
     if N == 0:
         return acc.zero_(), ll.zero_()
+    lib = _build.load()
+    hb, al, fq, nok = eval_layout(bits, allele, fA, fB, A)
+    M, Cc, fq_shared, scratch_shared, S = eval_plan(
+        int(nok.max()), A, C, K, N, lib.hibag_eval_smem)
+    gscratch = None
+    if not scratch_shared:
+        per_block = M * Cc + Cc * (A * (A + 1) // 2)
+        gscratch = torch.empty(K * -(-N // S) * per_block,
+                               dtype=torch.float32, device=dev)
+    oob = is_oob.to(torch.uint8)
+    accp = torch.empty((K, C, N), dtype=torch.int32, device=dev)
+    llp = torch.empty((K, C, N), dtype=torch.float32, device=dev)
     tab = pen_table(dev)
     with torch.cuda.device(dev):
         err = lib.hibag_eval_cand(
-            hb.data_ptr(), fA_s.data_ptr(), fB_s.data_ptr(), aoff.data_ptr(),
+            hb.data_ptr(), al.data_ptr(), nok.data_ptr(), fq.data_ptr(),
             g_cand.data_ptr(), geno_sel.data_ptr(), a1.data_ptr(),
             a2.data_ptr(), oob.data_ptr(), B.data_ptr(), tab.data_ptr(),
-            accp.data_ptr(), llp.data_ptr(), acc.data_ptr(), ll.data_ptr(),
-            K, H, N, C, A, Cg, torch.cuda.current_stream(dev).cuda_stream)
+            accp.data_ptr(), llp.data_ptr(),
+            gscratch.data_ptr() if gscratch is not None else None,
+            acc.data_ptr(), ll.data_ptr(), K, H, N, C, A, M, Cc, S,
+            fq_shared, scratch_shared,
+            torch.cuda.current_stream(dev).cuda_stream)
     _raise_if_failed(lib, err, "evaluation")
     LAUNCHES["evaluate_candidates_kernel"] += 1
     return acc, ll

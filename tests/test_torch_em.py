@@ -245,6 +245,32 @@ def test_evaluate_candidates_matches(seed, N, H, typed, flush_denormals):
     np.testing.assert_allclose(ll[0].numpy(), np.asarray(ll_r), rtol=1e-4)
 
 
+@pytest.mark.parametrize("seed,N,H", [(3, 400, 64), (4, 200, 128),
+                                      (5, 200, 64)])
+def test_evaluate_candidates_denormal_rule(seed, N, H):
+    """Untyped samples, PyTorch keeping denormals: true-pair scores that are
+    sums of denormal terms (hibag_tpu reads them as 0 under XLA's flush)
+    count as 0 in the port too, so counts are exact and -2logLik agrees."""
+    rng = np.random.default_rng(seed + 100)
+    p = _problem(seed, N=N, H=H)
+    drop = rng.random((2, *p["fA"].shape)) < 0.3
+    fA = np.where(drop[0], 0, p["fA"]).astype(np.float32)
+    fB = np.where(drop[1], 0, p["fB"]).astype(np.float32)
+    is_oob = p["B"] == 0
+    acc_r, ll_r = ref.evaluate_candidates(
+        jnp.asarray(p["bits"]), jnp.asarray(p["allele"]), jnp.asarray(10),
+        jnp.asarray(fA), jnp.asarray(fB), jnp.asarray(p["g_cand"]),
+        jnp.asarray(p["geno_sel"]), jnp.asarray(p["a1"]), jnp.asarray(p["a2"]),
+        jnp.asarray(is_oob), jnp.asarray(p["B"]), p["A"])
+    acc, ll, tq, _ = port.evaluate_candidates(
+        _t(p["bits"]), _t(p["allele"]), _t(fA), _t(fB), _t(p["g_cand"]),
+        _t(p["geno_sel"]), _t(p["a1"], False), _t(p["a2"], False),
+        _t(is_oob), _t(p["B"]), p["A"], per_sample=True)
+    assert not bool(((tq > 0) & (tq < np.finfo(np.float32).tiny)).any())
+    np.testing.assert_array_equal(acc[0].numpy(), np.asarray(acc_r))
+    np.testing.assert_allclose(ll[0].numpy(), np.asarray(ll_r), rtol=1e-4)
+
+
 def test_evaluate_candidates_per_sample():
     """per_sample=True adds each sample's true-pair score and total, from
     which -2logLik is summed, and leaves the other results as they are."""

@@ -313,6 +313,42 @@ def test_eval_kernel_on_untyped_samples(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("het_words", [0, 1, 2, 3, 4])
+def test_eval_kernel_heterozygous_words(cuda, het_words):
+    """Samples with heterozygous codes in exactly `het_words` of the four
+    32-SNP words (the kernel's distance is compiled per count): counts
+    exact, -2logLik at rtol 1e-4, bitwise equal run to run."""
+    c = chip_smoke._train_case(np.random.default_rng(30 + het_words), 2, 17,
+                               256, 14, 48, cuda, n_sel=128,
+                               het_words=het_words)
+    chip_smoke._check_train_kernel("evaluate_candidates_kernel",
+                                   *chip_smoke._eval_call(c), "het words")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,H,S", [(2, 256, 48), (1, 4096, 8),
+                                   (25, 128, 64)])
+def test_eval_kernel_identical_candidates(cuda, K, H, S):
+    """C=64 with identical candidates across float4 and chunk boundaries
+    (chip_smoke.EVAL_TWINS): bitwise equal counts and -2logLik; at H=4,096
+    the frequencies go in chunks; (25, 128, 64) is the headline step."""
+    c = chip_smoke._train_case(np.random.default_rng(40 + H), K, 64, H, 14,
+                               S, cuda, twins=chip_smoke.EVAL_TWINS)
+    chip_smoke._check_train_kernel("evaluate_candidates_kernel",
+                                   *chip_smoke._eval_call(c), "twins",
+                                   twins=chip_smoke.EVAL_TWINS)
+
+
+@pytest.mark.gpu
+def test_eval_kernel_plans_agree(cuda):
+    """Each of the kernel's four shared-memory plans gives bitwise the
+    default plan's results (chip_smoke._check_eval_plans)."""
+    c = chip_smoke._train_case(np.random.default_rng(50), 2, 17, 256, 14, 40,
+                               cuda, twins=chip_smoke.EVAL_TWINS)
+    assert len(chip_smoke._check_eval_plans(c, "plans")) == 4
+
+
+@pytest.mark.gpu
 def test_train_step_kernels_raise_on_bad_input(cuda):
     c = chip_smoke._train_case(np.random.default_rng(3), 1, 4, 64, 6, 16,
                                cuda)

@@ -143,6 +143,58 @@ def test_pen_table_is_the_plain_penalty():
     assert tab[0] == 1 and tab[256] == 0
 
 
+def test_eval_layout_keeps_each_alleles_slots():
+    """eval_layout is a permutation of the slots that puts the ok ones
+    first, sorted by allele, each with its bits and its candidates' fA and
+    fB; the frequency groups are 0 past C."""
+    rng = np.random.default_rng(8)
+    K, C, H, A = 2, 6, 40, 5
+    bits = rng.integers(0, 2, (K, H, 128)).astype(np.float32)
+    allele = rng.integers(0, A, (K, H)).astype(np.int32)
+    fA = rng.random((K, C, H)).astype(np.float32)
+    fB = rng.random((K, C, H)).astype(np.float32)
+    fA[rng.random(fA.shape) < 0.5] = 0
+    dead = rng.random((K, H)) < 0.3
+    fA[:, :, :] *= ~dead[:, None]
+    fB[:, :, :] *= ~dead[:, None]
+    hb, al, fq, nok = ts.eval_layout(
+        torch.from_numpy(bits), torch.from_numpy(allele),
+        torch.from_numpy(fA), torch.from_numpy(fB), A)
+    assert hb.shape == (K, H, 4) and fq.shape == (K, H, 2, 2, 4)
+    assert fq[:, :, 1, :, 2:].abs().sum() == 0          # candidates 6, 7
+    words = ts.pack_bits(torch.from_numpy(bits))
+    for k in range(K):
+        m = int(nok[k])
+        assert m == int((~dead[k]).sum())
+        assert bool((al[k, :m] < A).all()) and bool((al[k, m:] == A).all())
+        assert bool((al[k, 1:m] >= al[k, :m - 1]).all())
+        f = fq[k].permute(0, 2, 1, 3).reshape(H, 2, 8)[..., :C]
+        for a in range(A):
+            want = sorted(
+                (tuple(words[k, i].tolist()), tuple(fA[k, :, i].tolist()),
+                 tuple(fB[k, :, i].tolist()))
+                for i in range(H) if allele[k, i] == a and not dead[k, i])
+            got = sorted(
+                (tuple(hb[k, i].tolist()), tuple(f[i, 0].tolist()),
+                 tuple(f[i, 1].tolist()))
+                for i in range(m) if al[k, i] == a)
+            assert got == want
+
+
+def test_eval_plan_prefers_shared_memory():
+    """eval_plan takes the first plan that fits, at its largest chunk of
+    candidates, and raises when not even the slot records fit."""
+    def smem(M, A, Cc, f, sc):       # the kernel's layout, by its terms
+        return (1040 + 12 * Cc + 4 * (A + 4) + 24 * M + f * 8 * M * Cc
+                + sc * 4 * Cc * (M + A * (A + 1) // 2))
+    assert ts.eval_plan(224, 14, 17, 8, 1024, smem) == (224, 20, 1, 1, 8)
+    assert ts.eval_plan(3582, 14, 64, 1, 16, smem) == (3584, 4, 1, 0, 1)
+    assert ts.eval_plan(4096, 14, 64, 1, 16, smem) == (4096, 4, 0, 1, 1)
+    assert ts.eval_plan(4096, 128, 64, 1, 16, smem) == (4096, 64, 0, 0, 1)
+    with pytest.raises(ValueError, match="EVAL_SMEM_BYTES"):
+        ts.eval_plan(10000, 14, 17, 1, 1, smem)
+
+
 def test_pack_bits_layout():
     rng = np.random.default_rng(2)
     bits = rng.integers(0, 2, (3, 5, 128)).astype(np.float32)
