@@ -40,9 +40,14 @@ Phases, one line each (any failure raises and the exit code is non-zero):
                the samples whose true pair scores at least 2^-100, the
                difference over all printed); each kernel run twice must
                agree bitwise. The EM's packed and re-matched mask tiers
-               against its int8 tier through em_all_candidates. Then each
-               kernel timed beside its plain version at the mid-scale
-               cell's step shape.
+               against its int8 tier through em_all_candidates. The
+               evaluation kernel also on samples with heterozygous codes in
+               0..4 of the four 32-SNP words, at C=64 with identical
+               candidates across float4 and chunk boundaries (EVAL_TWINS,
+               bitwise equal) at H=256 and H=4,096, and under the budgets
+               that force each of its three shared-memory plans (bitwise
+               equal to the default plan). Then each kernel timed beside
+               its plain version at the mid-scale cell's step shape.
   5. train   — a seeded synthetic typed panel of 1,000 samples x 266 SNPs and
                14 alleles, its haplotypes mosaics away from the middle SNP
                (synthetic.PANEL_RECOMBINATION switches per Mb, which puts
@@ -83,6 +88,8 @@ Phases, one line each (any failure raises and the exit code is non-zero):
                did not, accuracy >= 0.9, sane probabilities and matching, and
                calls equal to the float64 scan engine on the first 64 samples
                outside the tie margin.
+With --eval-variants, only phases 1 and 2 and the evaluation kernel's
+plan variants at the mid-scale step shape (eval_variants).
 The line before the last is the kernels' JSON record (each kernel's
 launches on its phase's timed main-path run, with the counts set to 0 just
 before it; its time and its plain version's; its bound from this run's
@@ -612,9 +619,9 @@ def _eval_plan(c, budget=None):
 
 def _check_eval_plans(c, label):
     """The evaluation kernel on c under shared-memory budgets that force
-    each of its four plans at a chunk of 4 candidates (frequencies and
-    scratch in shared memory, frequencies only, scratch only, neither):
-    every plan must give bitwise the default plan's counts and -2logLik."""
+    each of its three plans at a chunk of 4 candidates (frequencies and
+    scratch in shared memory, frequencies only, neither): every plan must
+    give bitwise the default plan's counts and -2logLik."""
     from hibag_tpu_torch.ops import _build
     from hibag_tpu_torch.ops import train_step as ts
 
@@ -625,7 +632,7 @@ def _check_eval_plans(c, label):
     saved = ts.EVAL_SMEM_BYTES
     seen = []
     try:
-        for f, sc in ((1, 1), (1, 0), (0, 1), (0, 0)):
+        for f, sc in ((1, 1), (1, 0), (0, 0)):
             budget = int(smem(M, c["A"], 4, f, sc))
             plan = _eval_plan(c, budget)
             if plan[1:4] != (4, f, sc):
@@ -652,7 +659,7 @@ def _check_eval_cases(rng, dev):
     """Phase 3b's evaluation-only cases: samples with heterozygous codes in
     0..4 of the four 32-SNP words (the kernel's distance is compiled per
     count), C=64 with EVAL_TWINS at H=256 and at H=4,096 (where the
-    frequencies go in chunks of 4 candidates), and the four shared-memory
+    frequencies go in chunks of 4 candidates), and the three shared-memory
     plans on one input. Counts exact, -2logLik at rtol 1e-4, two runs and
     the twins bitwise equal."""
     name = "evaluate_candidates_kernel"
@@ -1085,9 +1092,47 @@ def phase_wide(dev, card):
     return {"launches": launches, **timing["ensemble_scores"]}
 
 
+def eval_variants(dev, card):
+    """The evaluation kernel at the mid-scale step shape (K=8, N=1,024,
+    H=256, C=17, A=14, phase 3b's timing case, from its own seed) under
+    plan variants, in turns: the default plan, 2 and 32 samples a block,
+    chunks of 8 candidates, the default again. Each must give bitwise the
+    default's results; prints three 10-launch means of each."""
+    from hibag_tpu_torch.ops import _build
+    from hibag_tpu_torch.ops import train_step as ts
+
+    c = _train_case(np.random.default_rng(123), 8, 17, 256, 14, 1024, dev,
+                    n_sel=16)
+    kern, _, args = _eval_call(c)
+    want = kern(*args)
+    M = _eval_plan(c)[0]
+    chunk8 = int(_build.load().hibag_eval_smem(M, 14, 8, 1, 1))
+    saved = ts.EVAL_SMEM_BYTES, ts.EVAL_BLOCKS
+    try:
+        for label, budget, blocks in (
+                ("default", None, None), ("S=2", None, 8 * 512),
+                ("S=32", None, 8 * 32), ("Cc=8", chunk8, None),
+                ("default", None, None)):
+            ts.EVAL_SMEM_BYTES = budget or saved[0]
+            ts.EVAL_BLOCKS = blocks or saved[1]
+            got = kern(*args)
+            if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                raise AssertionError(f"eval variant {label} differs")
+            ms = [_cuda_ms(lambda: kern(*args), 10) for _ in range(3)]
+            print(f"[eval-variants] {label} plan (M, Cc, fq_shared, "
+                  f"scratch_shared, S) {_eval_plan(c, budget)}: "
+                  f"{', '.join(f'{t:.4f}' for t in ms)} ms, bitwise equal to "
+                  f"the default | {card}")
+    finally:
+        ts.EVAL_SMEM_BYTES, ts.EVAL_BLOCKS = saved
+
+
 def main():
     dev, card = phase_device()
     phase_build()
+    if sys.argv[1:] == ["--eval-variants"]:
+        eval_variants(dev, card)
+        return 0
 
     from hibag_tpu_torch import AttrBagModel, predict
     from hibag_tpu_torch.data.geno import align_to_model

@@ -246,14 +246,14 @@ def eval_plan(m_max, n_alleles, C, K, N, smem_bytes):
     rounded up to 4, Cc the candidates a block takes at a time (a multiple
     of 4), whether their frequencies and the per-sample scratch and grids
     sit in shared memory (else device memory), and S the samples a block
-    takes. The first of (frequencies and scratch shared, frequencies shared,
-    scratch shared, neither) that fits EVAL_SMEM_BYTES, each at the largest
-    Cc that fits; `smem_bytes(M, A, Cc, fq_shared, scratch_shared)` is the
+    takes. The first of (frequencies and scratch shared, frequencies
+    shared, neither) that fits EVAL_SMEM_BYTES, each at the largest Cc that
+    fits; `smem_bytes(M, A, Cc, fq_shared, scratch_shared)` is the
     kernel's shared memory. Raises when not even the slot records fit."""
     M = max(4, -(-m_max // 4) * 4)
     Cp = -(-C // 4) * 4
     S = max(1, -(-K * N // EVAL_BLOCKS))
-    for fq_shared, scratch_shared in ((1, 1), (1, 0), (0, 1), (0, 0)):
+    for fq_shared, scratch_shared in ((1, 1), (1, 0), (0, 0)):
         for Cc in range(Cp, 0, -4):
             if smem_bytes(M, n_alleles, Cc, fq_shared,
                           scratch_shared) <= EVAL_SMEM_BYTES:

@@ -341,11 +341,11 @@ def test_eval_kernel_identical_candidates(cuda, K, H, S):
 
 @pytest.mark.gpu
 def test_eval_kernel_plans_agree(cuda):
-    """Each of the kernel's four shared-memory plans gives bitwise the
+    """Each of the kernel's three shared-memory plans gives bitwise the
     default plan's results (chip_smoke._check_eval_plans)."""
     c = chip_smoke._train_case(np.random.default_rng(50), 2, 17, 256, 14, 40,
                                cuda, twins=chip_smoke.EVAL_TWINS)
-    assert len(chip_smoke._check_eval_plans(c, "plans")) == 4
+    assert len(chip_smoke._check_eval_plans(c, "plans")) == 3
 
 
 @pytest.mark.gpu

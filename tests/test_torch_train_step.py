@@ -189,7 +189,7 @@ def test_eval_plan_prefers_shared_memory():
                 + sc * 4 * Cc * (M + A * (A + 1) // 2))
     assert ts.eval_plan(224, 14, 17, 8, 1024, smem) == (224, 20, 1, 1, 8)
     assert ts.eval_plan(3582, 14, 64, 1, 16, smem) == (3584, 4, 1, 0, 1)
-    assert ts.eval_plan(4096, 14, 64, 1, 16, smem) == (4096, 4, 0, 1, 1)
+    assert ts.eval_plan(4096, 14, 64, 1, 16, smem) == (4096, 64, 0, 0, 1)
     assert ts.eval_plan(4096, 128, 64, 1, 16, smem) == (4096, 64, 0, 0, 1)
     with pytest.raises(ValueError, match="EVAL_SMEM_BYTES"):
         ts.eval_plan(10000, 14, 17, 1, 1, smem)
