@@ -44,10 +44,12 @@ Phases, one line each (any failure raises and the exit code is non-zero):
                evaluation kernel also on samples with heterozygous codes in
                0..4 of the four 32-SNP words, at C=64 with identical
                candidates across float4 and chunk boundaries (EVAL_TWINS,
-               bitwise equal) at H=256 and H=4,096, and under the budgets
-               that force each of its three shared-memory plans (bitwise
-               equal to the default plan). Then each kernel timed beside
-               its plain version at the mid-scale cell's step shape.
+               bitwise equal) at H=256, H=4,096 and the headline step
+               (C=32), and under the budgets that force its shared plan in
+               chunks of 4 candidates and its device-memory plan (bitwise
+               equal to the default plan; each timed). Then each kernel
+               timed beside its plain version at the mid-scale cell's step
+               shape.
   5. train   — a seeded synthetic typed panel of 1,000 samples x 266 SNPs and
                14 alleles, its haplotypes mosaics away from the middle SNP
                (synthetic.PANEL_RECOMBINATION switches per Mb, which puts
@@ -88,8 +90,6 @@ Phases, one line each (any failure raises and the exit code is non-zero):
                did not, accuracy >= 0.9, sane probabilities and matching, and
                calls equal to the float64 scan engine on the first 64 samples
                outside the tie margin.
-With --eval-variants, only phases 1 and 2 and the evaluation kernel's
-plan variants at the mid-scale step shape (eval_variants).
 The line before the last is the kernels' JSON record (each kernel's
 launches on its phase's timed main-path run, with the counts set to 0 just
 before it; its time and its plain version's; its bound from this run's
@@ -590,8 +590,7 @@ def phase_train_kernels(dev):
             old = _train_bound(name, c, flops_per_term=12)
             extra = (f"; bound at 12 float operations per pair-candidate "
                      f"term {old['bound_ms']:.4f} ms ({old['bound_by']}); "
-                     f"plan (M, Cc, fq_shared, scratch_shared, S) "
-                     f"{_eval_plan(c)}")
+                     f"plan (M, Cc, shared, S) {_eval_plan(c)}")
         print(f"[train-kernel] {name} {label}: bitwise deterministic, max "
               f"abs err {e:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})"
@@ -607,46 +606,39 @@ def _eval_plan(c, budget=None):
 
     nok = ((c["fAe"] > 0) | (c["fBe"] > 0)).any(dim=1).sum(1)
     K, C, _ = c["fAe"].shape
-    saved = ts.EVAL_SMEM_BYTES
-    ts.EVAL_SMEM_BYTES = budget or saved
-    try:
-        return ts.eval_plan(int(nok.max()), c["A"], C, K,
-                            int(c["geno"].shape[1]),
-                            _build.load().hibag_eval_smem)
-    finally:
-        ts.EVAL_SMEM_BYTES = saved
+    return ts.eval_plan(int(nok.max()), c["A"], C, K,
+                        int(c["geno"].shape[1]),
+                        _build.load().hibag_eval_smem,
+                        budget or ts.EVAL_SMEM_BYTES)
 
 
 def _check_eval_plans(c, label):
-    """The evaluation kernel on c under shared-memory budgets that force
-    each of its three plans at a chunk of 4 candidates (frequencies and
-    scratch in shared memory, frequencies only, neither): every plan must
-    give bitwise the default plan's counts and -2logLik."""
+    """The evaluation kernel on c under the shared-memory budgets that force
+    its shared plan at a chunk of 4 candidates and its device-memory plan:
+    each must give bitwise the default plan's counts and -2logLik. Returns
+    [(plan, ms of one launch)] for the default and the two."""
     from hibag_tpu_torch.ops import _build
     from hibag_tpu_torch.ops import train_step as ts
 
     kern, _, args = _eval_call(c)
     want = kern(*args)
-    M, _, _, _, _ = _eval_plan(c)
+    M, Cp = _eval_plan(c)[0], -(-c["fAe"].shape[1] // 4) * 4
     smem = _build.load().hibag_eval_smem
-    saved = ts.EVAL_SMEM_BYTES
     seen = []
-    try:
-        for f, sc in ((1, 1), (1, 0), (0, 0)):
-            budget = int(smem(M, c["A"], 4, f, sc))
-            plan = _eval_plan(c, budget)
-            if plan[1:4] != (4, f, sc):
-                raise AssertionError(f"{label}: budget {budget} gave plan "
-                                     f"{plan}, not Cc=4 {(f, sc)}")
-            ts.EVAL_SMEM_BYTES = budget
-            got = kern(*args)
-            torch.cuda.synchronize()
-            if not all(torch.equal(x, y) for x, y in zip(got, want)):
-                raise AssertionError(f"{label}: plan {plan} differs from the "
-                                     "default plan")
-            seen.append(plan)
-    finally:
-        ts.EVAL_SMEM_BYTES = saved
+    for budget, shape in ((None, None),
+                          (int(smem(M, c["A"], 4, 1)), (4, True)),
+                          (int(smem(M, c["A"], Cp, 0)), (Cp, False))):
+        plan = _eval_plan(c, budget)
+        if shape is not None and plan[1:3] != shape:
+            raise AssertionError(f"{label}: budget {budget} gave plan {plan},"
+                                 f" not (Cc, shared) {shape}")
+        run = lambda: kern(*args, smem_budget=budget or ts.EVAL_SMEM_BYTES)
+        got = run()
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"{label}: plan {plan} differs from the "
+                                 "default plan")
+        seen.append((plan, _cuda_ms(run, 5)))
     return seen
 
 
@@ -658,10 +650,10 @@ EVAL_TWINS = ((0, 1), (3, 4), (7, 8), (62, 63))
 def _check_eval_cases(rng, dev):
     """Phase 3b's evaluation-only cases: samples with heterozygous codes in
     0..4 of the four 32-SNP words (the kernel's distance is compiled per
-    count), C=64 with EVAL_TWINS at H=256 and at H=4,096 (where the
-    frequencies go in chunks of 4 candidates), and the three shared-memory
-    plans on one input. Counts exact, -2logLik at rtol 1e-4, two runs and
-    the twins bitwise equal."""
+    count); EVAL_TWINS at C=64 with H=256 and H=4,096 (the device-memory
+    plan) and at the headline step (K=25, C=32, H=128, S=64); and the plans
+    forced and timed on two inputs that the default runs in chunks. Counts
+    exact, -2logLik at rtol 1e-4, two runs and the twins bitwise equal."""
     name = "evaluate_candidates_kernel"
     for nw in range(5):
         c = _train_case(rng, 2, 17, 256, 14, 64, dev, n_sel=128,
@@ -670,18 +662,26 @@ def _check_eval_cases(rng, dev):
         e = _check_train_kernel(name, *_eval_call(c), label)
         print(f"[train-kernel] {name} {label}: bitwise deterministic, max "
               f"abs err {e:.3e}")
-    for K, H, S in ((2, 256, 64), (1, 4096, 16)):
-        c = _train_case(rng, K, 64, H, 14, S, dev, twins=EVAL_TWINS)
-        label = f"K={K} C=64 H={H} A=14 S={S} twins {EVAL_TWINS}"
+    for K, C, H, S in EVAL_TWIN_CASES:
+        c = _train_case(rng, K, C, H, 14, S, dev, twins=EVAL_TWINS)
+        label = f"K={K} C={C} H={H} A=14 S={S} twins {EVAL_TWINS}"
         e = _check_train_kernel(name, *_eval_call(c), label,
                                 twins=EVAL_TWINS)
-        print(f"[train-kernel] {name} {label}: plan {_eval_plan(c)}; twins "
-              f"bitwise equal, bitwise deterministic, max abs err {e:.3e}")
-    c = _train_case(rng, 2, 17, 256, 14, 64, dev, twins=EVAL_TWINS)
-    plans = _check_eval_plans(c, "K=2 C=17 H=256 A=14 S=64")
-    print(f"[train-kernel] {name} K=2 C=17 H=256 A=14 S=64: plans "
-          f"(M, Cc, fq_shared, scratch_shared, S) {plans} bitwise equal to "
-          f"the default {_eval_plan(c)}")
+        print(f"[train-kernel] {name} {label}: plan (M, Cc, shared, S) "
+              f"{_eval_plan(c)}; twins bitwise equal, bitwise deterministic,"
+              f" max abs err {e:.3e}")
+    for K, C, H, S in ((8, 17, 1024, 128), (2, 64, 2048, 64)):
+        c = _train_case(rng, K, C, H, 14, S, dev, twins=EVAL_TWINS)
+        label = f"K={K} C={C} H={H} A=14 S={S}"
+        plans = _check_eval_plans(c, label)
+        print(f"[train-kernel] {name} {label}: plans (M, Cc, shared, S) and "
+              "ms " + ", ".join(f"{p} {ms:.4f}" for p, ms in plans)
+              + "; bitwise equal")
+
+
+#: (K, C, H, S) of the twin cases: C=64 at H=256 and at H=4,096 (the
+#: device-memory plan), and the headline step
+EVAL_TWIN_CASES = ((2, 64, 256, 64), (1, 64, 4096, 16), (25, 32, 128, 64))
 
 
 def _train_bound(name, c, flops_per_term=None):
@@ -1092,47 +1092,9 @@ def phase_wide(dev, card):
     return {"launches": launches, **timing["ensemble_scores"]}
 
 
-def eval_variants(dev, card):
-    """The evaluation kernel at the mid-scale step shape (K=8, N=1,024,
-    H=256, C=17, A=14, phase 3b's timing case, from its own seed) under
-    plan variants, in turns: the default plan, 2 and 32 samples a block,
-    chunks of 8 candidates, the default again. Each must give bitwise the
-    default's results; prints three 10-launch means of each."""
-    from hibag_tpu_torch.ops import _build
-    from hibag_tpu_torch.ops import train_step as ts
-
-    c = _train_case(np.random.default_rng(123), 8, 17, 256, 14, 1024, dev,
-                    n_sel=16)
-    kern, _, args = _eval_call(c)
-    want = kern(*args)
-    M = _eval_plan(c)[0]
-    chunk8 = int(_build.load().hibag_eval_smem(M, 14, 8, 1, 1))
-    saved = ts.EVAL_SMEM_BYTES, ts.EVAL_BLOCKS
-    try:
-        for label, budget, blocks in (
-                ("default", None, None), ("S=2", None, 8 * 512),
-                ("S=32", None, 8 * 32), ("Cc=8", chunk8, None),
-                ("default", None, None)):
-            ts.EVAL_SMEM_BYTES = budget or saved[0]
-            ts.EVAL_BLOCKS = blocks or saved[1]
-            got = kern(*args)
-            if not all(torch.equal(x, y) for x, y in zip(got, want)):
-                raise AssertionError(f"eval variant {label} differs")
-            ms = [_cuda_ms(lambda: kern(*args), 10) for _ in range(3)]
-            print(f"[eval-variants] {label} plan (M, Cc, fq_shared, "
-                  f"scratch_shared, S) {_eval_plan(c, budget)}: "
-                  f"{', '.join(f'{t:.4f}' for t in ms)} ms, bitwise equal to "
-                  f"the default | {card}")
-    finally:
-        ts.EVAL_SMEM_BYTES, ts.EVAL_BLOCKS = saved
-
-
 def main():
     dev, card = phase_device()
     phase_build()
-    if sys.argv[1:] == ["--eval-variants"]:
-        eval_variants(dev, card)
-        return 0
 
     from hibag_tpu_torch import AttrBagModel, predict
     from hibag_tpu_torch.data.geno import align_to_model

@@ -98,13 +98,13 @@ def load() -> ctypes.CDLL:
     lib.hibag_ens_acc.restype = i
     lib.hibag_em_estep.argtypes = [p] * 10 + [i] * 6 + [ctypes.c_float, p]
     lib.hibag_em_estep.restype = i
-    lib.hibag_eval_cand.argtypes = [p] * 16 + [i] * 10 + [p]
+    lib.hibag_eval_cand.argtypes = [p] * 16 + [i] * 9 + [p]
     lib.hibag_eval_cand.restype = i
     lib.hibag_post_scores.argtypes = [p] * 10 + [i] * 4 + [p]
     lib.hibag_post_scores.restype = i
     lib.hibag_post_scores_scratch.argtypes = [i]
     lib.hibag_post_scores_scratch.restype = ctypes.c_longlong
-    lib.hibag_eval_smem.argtypes = [i] * 5
+    lib.hibag_eval_smem.argtypes = [i] * 4
     lib.hibag_eval_smem.restype = ctypes.c_longlong
     lib.hibag_cuda_error_string.argtypes = [i]
     lib.hibag_cuda_error_string.restype = ctypes.c_char_p

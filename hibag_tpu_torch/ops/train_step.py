@@ -34,10 +34,9 @@ MAX_C = 64
 #: shared memory the evaluation kernel may ask for (of the 227 KB a block
 #: can have on the H100, less its static scratch)
 EVAL_SMEM_BYTES = 224 * 1024
-#: blocks the evaluation kernel aims for: a block takes
-#: ceil(K * N / EVAL_BLOCKS) samples of one classifier (8 blocks for each of
-#: the H100's 132 SMs)
-EVAL_BLOCKS = 8 * 132
+#: most device scratch the evaluation kernel's device-memory plan takes
+#: (it holds one classifier's run at least)
+EVAL_SCRATCH_BYTES = 1024 ** 3
 #: sample groups of the EM kernel: a block owns a run of samples, the
 #: number of runs depends on S only
 EM_MAX_GROUPS = 64
@@ -240,37 +239,54 @@ def eval_layout(bits, allele, fA, fB, n_alleles):
             ok.sum(1).to(torch.int32))
 
 
-def eval_plan(m_max, n_alleles, C, K, N, smem_bytes):
-    """How the evaluation kernel runs a batch whose classifiers hold at most
-    m_max ok slots: (M, Cc, fq_shared, scratch_shared, S) with M = m_max
+def eval_plan(m_max, n_alleles, C, K, N, smem_bytes,
+              budget=EVAL_SMEM_BYTES):
+    """How the evaluation kernel runs a batch of K classifiers, of at most
+    m_max ok slots each, over N samples: (M, Cc, shared, S) with M = m_max
     rounded up to 4, Cc the candidates a block takes at a time (a multiple
-    of 4), whether their frequencies and the per-sample scratch and grids
-    sit in shared memory (else device memory), and S the samples a block
-    takes. The first of (frequencies and scratch shared, frequencies
-    shared, neither) that fits EVAL_SMEM_BYTES, each at the largest Cc that
-    fits; `smem_bytes(M, A, Cc, fq_shared, scratch_shared)` is the
-    kernel's shared memory. Raises when not even the slot records fit."""
+    of 4), whether their frequencies, the per-sample scratch and the cell
+    grids sit in shared memory, and S the samples a block takes (about 8
+    blocks for each of the H100's 132 SMs). In shared memory at the largest
+    Cc that fits `budget` bytes (`smem_bytes(M, A, Cc, shared)` is the
+    kernel's shared memory); else all in device memory at one chunk, with S
+    raised so that the scratch stays within EVAL_SCRATCH_BYTES. Raises when
+    not even the slot records fit."""
     M = max(4, -(-m_max // 4) * 4)
     Cp = -(-C // 4) * 4
-    S = max(1, -(-K * N // EVAL_BLOCKS))
-    for fq_shared, scratch_shared in ((1, 1), (1, 0), (0, 0)):
-        for Cc in range(Cp, 0, -4):
-            if smem_bytes(M, n_alleles, Cc, fq_shared,
-                          scratch_shared) <= EVAL_SMEM_BYTES:
-                return M, Cc, fq_shared, scratch_shared, S
-    raise ValueError(f"{m_max} haplotype slots do not fit the evaluation "
-                     f"kernel's shared memory (EVAL_SMEM_BYTES="
-                     f"{EVAL_SMEM_BYTES})")
+    S = max(1, -(-K * N // (8 * 132)))
+    for Cc in range(Cp, 0, -4):
+        if smem_bytes(M, n_alleles, Cc, 1) <= budget:
+            return M, Cc, True, S
+    if smem_bytes(M, n_alleles, Cp, 0) > budget:
+        raise ValueError(f"{m_max} haplotype slots do not fit the evaluation "
+                         f"kernel's shared memory ({budget} bytes)")
+    runs = max(1, EVAL_SCRATCH_BYTES // (K * eval_scratch_bytes(M, n_alleles,
+                                                                Cp)))
+    return M, Cp, False, max(S, -(-N // runs))
+
+
+def eval_slots(nok) -> int:
+    """The largest ok count of a batch (`eval_layout`'s nok), read to the
+    host for `eval_plan`."""
+    return int(nok.max())
+
+
+def eval_scratch_bytes(M, n_alleles, Cc):
+    """Device scratch of one block of the evaluation kernel's device-memory
+    plan: the [slot][candidate] row sums and the cell grids."""
+    return 4 * Cc * (M + n_alleles * (n_alleles + 1) // 2)
 
 
 def evaluate_candidates_kernel(bits, allele, fA, fB, g_cand, geno_sel, a1,
-                               a2, is_oob, B, n_alleles):
+                               a2, is_oob, B, n_alleles, *,
+                               smem_budget=EVAL_SMEM_BYTES):
     """OOB accuracy count and in-bag -2logLik of every candidate of K
     classifiers; the arguments and results of models.em.evaluate_candidates
     (bits float32 [K, H, 128], allele [K, H], fA/fB float32 [K, C, H],
     g_cand int8 [K, C, N], geno_sel int8 [K, N, 128], a1/a2 int32 [N],
     is_oob bool [K, N], B float32 [K, N]) -> (acc int32 [K, C], ll float32
-    [K, C])."""
+    [K, C]). `smem_budget` caps the kernel's shared memory (`eval_plan`);
+    every plan gives bitwise the same results."""
     _check_eval(bits, allele, fA, fB, g_cand, geno_sel, a1, a2, is_oob, B,
                 n_alleles)
     if fA.device.type == "cpu":
@@ -289,13 +305,15 @@ def evaluate_candidates_kernel(bits, allele, fA, fB, g_cand, geno_sel, a1,
         return acc.zero_(), ll.zero_()
     lib = _build.load()
     hb, al, fq, nok = eval_layout(bits, allele, fA, fB, A)
-    M, Cc, fq_shared, scratch_shared, S = eval_plan(
-        int(nok.max()), A, C, K, N, lib.hibag_eval_smem)
+    # the wrapper's one device-to-host sync: sizing shared memory by the
+    # largest ok count, not by H, keeps more blocks on an SM (PERF.md)
+    M, Cc, shared, S = eval_plan(eval_slots(nok), A, C, K, N,
+                                 lib.hibag_eval_smem, smem_budget)
     gscratch = None
-    if not scratch_shared:
-        per_block = M * Cc + Cc * (A * (A + 1) // 2)
-        gscratch = torch.empty(K * -(-N // S) * per_block,
-                               dtype=torch.float32, device=dev)
+    if not shared:
+        gscratch = torch.empty(
+            K * -(-N // S) * eval_scratch_bytes(M, A, Cc) // 4,
+            dtype=torch.float32, device=dev)
     oob = is_oob.to(torch.uint8)
     accp = torch.empty((K, C, N), dtype=torch.int32, device=dev)
     llp = torch.empty((K, C, N), dtype=torch.float32, device=dev)
@@ -308,8 +326,7 @@ def evaluate_candidates_kernel(bits, allele, fA, fB, g_cand, geno_sel, a1,
             accp.data_ptr(), llp.data_ptr(),
             gscratch.data_ptr() if gscratch is not None else None,
             acc.data_ptr(), ll.data_ptr(), K, H, N, C, A, M, Cc, S,
-            fq_shared, scratch_shared,
-            torch.cuda.current_stream(dev).cuda_stream)
+            int(shared), torch.cuda.current_stream(dev).cuda_stream)
     _raise_if_failed(lib, err, "evaluation")
     LAUNCHES["evaluate_candidates_kernel"] += 1
     return acc, ll

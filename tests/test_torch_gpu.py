@@ -326,14 +326,15 @@ def test_eval_kernel_heterozygous_words(cuda, het_words):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("K,H,S", [(2, 256, 48), (1, 4096, 8),
-                                   (25, 128, 64)])
-def test_eval_kernel_identical_candidates(cuda, K, H, S):
-    """C=64 with identical candidates across float4 and chunk boundaries
-    (chip_smoke.EVAL_TWINS): bitwise equal counts and -2logLik; at H=4,096
-    the frequencies go in chunks; (25, 128, 64) is the headline step."""
-    c = chip_smoke._train_case(np.random.default_rng(40 + H), K, 64, H, 14,
-                               S, cuda, twins=chip_smoke.EVAL_TWINS)
+@pytest.mark.parametrize("K,C,H,S", [(2, 64, 256, 48), (1, 64, 4096, 8),
+                                     (25, 64, 128, 64), (25, 32, 128, 64)])
+def test_eval_kernel_identical_candidates(cuda, K, C, H, S):
+    """Identical candidates across float4 and chunk boundaries
+    (chip_smoke.EVAL_TWINS, those below C): bitwise equal counts and
+    -2logLik; H=4,096 takes the device-memory plan; K=25, C=32, H=128 is
+    the headline step."""
+    c = chip_smoke._train_case(np.random.default_rng(40 + H + C), K, C, H,
+                               14, S, cuda, twins=chip_smoke.EVAL_TWINS)
     chip_smoke._check_train_kernel("evaluate_candidates_kernel",
                                    *chip_smoke._eval_call(c), "twins",
                                    twins=chip_smoke.EVAL_TWINS)
@@ -341,8 +342,8 @@ def test_eval_kernel_identical_candidates(cuda, K, H, S):
 
 @pytest.mark.gpu
 def test_eval_kernel_plans_agree(cuda):
-    """Each of the kernel's three shared-memory plans gives bitwise the
-    default plan's results (chip_smoke._check_eval_plans)."""
+    """The shared plan in chunks of 4 candidates and the device-memory plan
+    give bitwise the default plan's results (chip_smoke._check_eval_plans)."""
     c = chip_smoke._train_case(np.random.default_rng(50), 2, 17, 256, 14, 40,
                                cuda, twins=chip_smoke.EVAL_TWINS)
     assert len(chip_smoke._check_eval_plans(c, "plans")) == 3

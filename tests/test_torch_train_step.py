@@ -182,16 +182,29 @@ def test_eval_layout_keeps_each_alleles_slots():
 
 
 def test_eval_plan_prefers_shared_memory():
-    """eval_plan takes the first plan that fits, at its largest chunk of
-    candidates, and raises when not even the slot records fit."""
-    def smem(M, A, Cc, f, sc):       # the kernel's layout, by its terms
-        return (1040 + 12 * Cc + 4 * (A + 4) + 24 * M + f * 8 * M * Cc
-                + sc * 4 * Cc * (M + A * (A + 1) // 2))
-    assert ts.eval_plan(224, 14, 17, 8, 1024, smem) == (224, 20, 1, 1, 8)
-    assert ts.eval_plan(3582, 14, 64, 1, 16, smem) == (3584, 4, 1, 0, 1)
-    assert ts.eval_plan(4096, 14, 64, 1, 16, smem) == (4096, 64, 0, 0, 1)
-    assert ts.eval_plan(4096, 128, 64, 1, 16, smem) == (4096, 64, 0, 0, 1)
-    with pytest.raises(ValueError, match="EVAL_SMEM_BYTES"):
+    """eval_plan keeps everything in shared memory at the largest chunk of
+    candidates that fits the budget, else goes to device memory at one
+    chunk with its scratch capped, and raises when not even the slot
+    records fit."""
+    def smem(M, A, Cc, shared):      # the kernel's layout, by its terms
+        return (1040 + 12 * Cc + 16 * ((A + 4) // 4) + 24 * M
+                + shared * 4 * Cc * (3 * M + A * (A + 1) // 2))
+    assert ts.eval_plan(256, 14, 17, 8, 1024, smem) == (256, 20, True, 8)
+    assert ts.eval_plan(1022, 14, 17, 8, 1024, smem) == (1024, 16, True, 8)
+    assert ts.eval_plan(256, 14, 17, 8, 1024, smem,
+                        smem(256, 14, 8, 1)) == (256, 8, True, 8)
+    assert ts.eval_plan(4096, 14, 64, 1, 16, smem) == (4096, 64, False, 1)
+    assert ts.eval_plan(256, 14, 17, 8, 1024, smem,
+                        smem(256, 14, 20, 0)) == (256, 20, False, 8)
+    # 8 classifiers of 4,096 slots and 128 alleles: 3.2 MB of scratch a
+    # block, so 42 runs of 25 samples each, not 128 of 8
+    per = ts.eval_scratch_bytes(4096, 128, 64)
+    assert per == 4 * 64 * (4096 + 8256)
+    M, Cc, shared, S = ts.eval_plan(4096, 128, 64, 8, 1024, smem)
+    assert (M, Cc, shared, S) == (4096, 64, False, 25)
+    assert 8 * -(-1024 // S) * per <= ts.EVAL_SCRATCH_BYTES
+    assert 8 * -(-1024 // (S - 1)) * per > ts.EVAL_SCRATCH_BYTES
+    with pytest.raises(ValueError, match="shared memory"):
         ts.eval_plan(10000, 14, 17, 1, 1, smem)
 
 
