@@ -43,12 +43,13 @@ Phases, one line each (any failure raises and the exit code is non-zero):
                against its int8 tier through em_all_candidates. The
                evaluation kernel also on samples with heterozygous codes in
                0..4 of the four 32-SNP words, at C=64 with identical
-               candidates across float4 and chunk boundaries (EVAL_TWINS,
-               bitwise equal) at H=256, H=4,096 and the headline step
-               (C=32), and under the budgets that force its shared plan in
-               chunks of 4 candidates and its device-memory plan (bitwise
-               equal to the default plan; each timed). Then each kernel
-               timed beside its plain version at the mid-scale cell's step
+               candidates across float4 boundaries (EVAL_TWINS,
+               bitwise equal) at H=256 and H=4,096 (its device-memory plan,
+               timed) and the headline step (C=32); there and at the
+               mid-scale step shape also under the budget that forces the
+               device-memory plan (bitwise equal to the default
+               shared-memory plan; both timed). Then each kernel timed
+               beside its plain version at the mid-scale cell's step
                shape.
   5. train   — a seeded synthetic typed panel of 1,000 samples x 266 SNPs and
                14 alleles, its haplotypes mosaics away from the middle SNP
@@ -590,7 +591,7 @@ def phase_train_kernels(dev):
             old = _train_bound(name, c, flops_per_term=12)
             extra = (f"; bound at 12 float operations per pair-candidate "
                      f"term {old['bound_ms']:.4f} ms ({old['bound_by']}); "
-                     f"plan (M, Cc, shared, S) {_eval_plan(c)}")
+                     f"{_plans_line(c, label)}")
         print(f"[train-kernel] {name} {label}: bitwise deterministic, max "
               f"abs err {e:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})"
@@ -604,46 +605,44 @@ def _eval_plan(c, budget=None):
     from hibag_tpu_torch.ops import _build
     from hibag_tpu_torch.ops import train_step as ts
 
-    nok = ((c["fAe"] > 0) | (c["fBe"] > 0)).any(dim=1).sum(1)
-    K, C, _ = c["fAe"].shape
-    return ts.eval_plan(int(nok.max()), c["A"], C, K,
-                        int(c["geno"].shape[1]),
+    K, C, H = c["fAe"].shape
+    return ts.eval_plan(H, c["A"], C, K, int(c["geno"].shape[1]),
                         _build.load().hibag_eval_smem,
                         budget or ts.EVAL_SMEM_BYTES)
 
 
 def _check_eval_plans(c, label):
-    """The evaluation kernel on c under the shared-memory budgets that force
-    its shared plan at a chunk of 4 candidates and its device-memory plan:
-    each must give bitwise the default plan's counts and -2logLik. Returns
-    [(plan, ms of one launch)] for the default and the two."""
+    """The evaluation kernel on c, whose default plan keeps everything in
+    shared memory, under the budget that forces its device-memory plan: it
+    must give bitwise the default's counts and -2logLik. Returns [(plan, ms
+    of one launch, a mean of 10)] for the default and the forced plan."""
     from hibag_tpu_torch.ops import _build
     from hibag_tpu_torch.ops import train_step as ts
 
     kern, _, args = _eval_call(c)
     want = kern(*args)
-    M, Cp = _eval_plan(c)[0], -(-c["fAe"].shape[1] // 4) * 4
-    smem = _build.load().hibag_eval_smem
+    M, shared, _ = _eval_plan(c)
+    if not shared:
+        raise AssertionError(f"{label}: the default plan is not shared")
     seen = []
-    for budget, shape in ((None, None),
-                          (int(smem(M, c["A"], 4, 1)), (4, True)),
-                          (int(smem(M, c["A"], Cp, 0)), (Cp, False))):
+    for budget in (ts.EVAL_SMEM_BYTES,
+                   int(_build.load().hibag_eval_smem(
+                       M, c["A"], c["fAe"].shape[1], 0))):
         plan = _eval_plan(c, budget)
-        if shape is not None and plan[1:3] != shape:
-            raise AssertionError(f"{label}: budget {budget} gave plan {plan},"
-                                 f" not (Cc, shared) {shape}")
-        run = lambda: kern(*args, smem_budget=budget or ts.EVAL_SMEM_BYTES)
+        run = lambda: kern(*args, smem_budget=budget)
         got = run()
         torch.cuda.synchronize()
         if not all(torch.equal(x, y) for x, y in zip(got, want)):
             raise AssertionError(f"{label}: plan {plan} differs from the "
                                  "default plan")
-        seen.append((plan, _cuda_ms(run, 5)))
+        seen.append((plan, _cuda_ms(run, 10)))
+    if seen[1][0][1]:
+        raise AssertionError(f"{label}: no device-memory plan was forced")
     return seen
 
 
-#: identical candidates across a float4 and chunk boundary (3/4, 7/8) and
-#: within the last float4 of 64 (62/63)
+#: identical candidates across a float4 boundary (3/4, 7/8) and within the
+#: last float4 of 64 (62/63)
 EVAL_TWINS = ((0, 1), (3, 4), (7, 8), (62, 63))
 
 
@@ -651,9 +650,11 @@ def _check_eval_cases(rng, dev):
     """Phase 3b's evaluation-only cases: samples with heterozygous codes in
     0..4 of the four 32-SNP words (the kernel's distance is compiled per
     count); EVAL_TWINS at C=64 with H=256 and H=4,096 (the device-memory
-    plan) and at the headline step (K=25, C=32, H=128, S=64); and the plans
-    forced and timed on two inputs that the default runs in chunks. Counts
-    exact, -2logLik at rtol 1e-4, two runs and the twins bitwise equal."""
+    plan) and at the headline step (K=25, C=32, H=128, S=64), where the
+    device-memory plan is also forced and timed. Counts exact, -2logLik at
+    rtol 1e-4, two runs and the twins bitwise equal."""
+    from hibag_tpu_torch.ops import train_step as ts
+
     name = "evaluate_candidates_kernel"
     for nw in range(5):
         c = _train_case(rng, 2, 17, 256, 14, 64, dev, n_sel=128,
@@ -665,18 +666,27 @@ def _check_eval_cases(rng, dev):
     for K, C, H, S in EVAL_TWIN_CASES:
         c = _train_case(rng, K, C, H, 14, S, dev, twins=EVAL_TWINS)
         label = f"K={K} C={C} H={H} A=14 S={S} twins {EVAL_TWINS}"
-        e = _check_train_kernel(name, *_eval_call(c), label,
+        kern, ref, args = _eval_call(c)
+        e = _check_train_kernel(name, kern, ref, args, label,
                                 twins=EVAL_TWINS)
-        print(f"[train-kernel] {name} {label}: plan (M, Cc, shared, S) "
-              f"{_eval_plan(c)}; twins bitwise equal, bitwise deterministic,"
-              f" max abs err {e:.3e}")
-    for K, C, H, S in ((8, 17, 1024, 128), (2, 64, 2048, 64)):
-        c = _train_case(rng, K, C, H, 14, S, dev, twins=EVAL_TWINS)
-        label = f"K={K} C={C} H={H} A=14 S={S}"
-        plans = _check_eval_plans(c, label)
-        print(f"[train-kernel] {name} {label}: plans (M, Cc, shared, S) and "
-              "ms " + ", ".join(f"{p} {ms:.4f}" for p, ms in plans)
-              + "; bitwise equal")
+        M, shared, per = _eval_plan(c)
+        extra = ""
+        if not shared:
+            mib = K * -(-S // per) * ts.eval_scratch_bytes(M, 14, C) / 2 ** 20
+            ms = _cuda_ms(lambda: kern(*args), 5)
+            extra = (f"; device-memory plan {ms:.4f} ms, scratch "
+                     f"{mib:.1f} MiB")
+        print(f"[train-kernel] {name} {label}: plan (M, shared, S) "
+              f"{(M, shared, per)}; twins bitwise equal, bitwise "
+              f"deterministic, max abs err {e:.3e}{extra}")
+    print(f"[train-kernel] {name} {label}: {_plans_line(c, label)}")
+
+
+def _plans_line(c, label):
+    """_check_eval_plans(c, label) as a line of text."""
+    return "plans (M, shared, S) and ms " + ", ".join(
+        f"{p} {ms:.4f}" for p, ms in _check_eval_plans(c, label)) \
+        + "; bitwise equal"
 
 
 #: (K, C, H, S) of the twin cases: C=64 at H=256 and at H=4,096 (the

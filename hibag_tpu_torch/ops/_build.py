@@ -98,7 +98,7 @@ def load() -> ctypes.CDLL:
     lib.hibag_ens_acc.restype = i
     lib.hibag_em_estep.argtypes = [p] * 10 + [i] * 6 + [ctypes.c_float, p]
     lib.hibag_em_estep.restype = i
-    lib.hibag_eval_cand.argtypes = [p] * 16 + [i] * 9 + [p]
+    lib.hibag_eval_cand.argtypes = [p] * 16 + [i] * 8 + [p]
     lib.hibag_eval_cand.restype = i
     lib.hibag_post_scores.argtypes = [p] * 10 + [i] * 4 + [p]
     lib.hibag_post_scores.restype = i

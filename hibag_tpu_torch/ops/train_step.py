@@ -239,42 +239,32 @@ def eval_layout(bits, allele, fA, fB, n_alleles):
             ok.sum(1).to(torch.int32))
 
 
-def eval_plan(m_max, n_alleles, C, K, N, smem_bytes,
-              budget=EVAL_SMEM_BYTES):
-    """How the evaluation kernel runs a batch of K classifiers, of at most
-    m_max ok slots each, over N samples: (M, Cc, shared, S) with M = m_max
-    rounded up to 4, Cc the candidates a block takes at a time (a multiple
-    of 4), whether their frequencies, the per-sample scratch and the cell
-    grids sit in shared memory, and S the samples a block takes (about 8
-    blocks for each of the H100's 132 SMs). In shared memory at the largest
-    Cc that fits `budget` bytes (`smem_bytes(M, A, Cc, shared)` is the
-    kernel's shared memory); else all in device memory at one chunk, with S
-    raised so that the scratch stays within EVAL_SCRATCH_BYTES. Raises when
-    not even the slot records fit."""
-    M = max(4, -(-m_max // 4) * 4)
-    Cp = -(-C // 4) * 4
+def eval_plan(H, n_alleles, C, K, N, smem_bytes, budget=EVAL_SMEM_BYTES):
+    """How the evaluation kernel runs a batch of K classifiers of H slots
+    over N samples: (M, shared, S) with M = H rounded up to 4 (the slots a
+    block makes room for), whether the candidates' frequencies, the row
+    scratch and the cell grids sit in shared memory (they do when they fit
+    `budget` bytes; `smem_bytes(M, A, C, shared)` is the kernel's shared
+    memory), and S the samples a block takes: about 8 blocks for each of
+    the H100's 132 SMs, more samples a block where the device scratch would
+    pass EVAL_SCRATCH_BYTES. Raises when not even the slot records fit."""
+    M = max(4, -(-H // 4) * 4)
     S = max(1, -(-K * N // (8 * 132)))
-    for Cc in range(Cp, 0, -4):
-        if smem_bytes(M, n_alleles, Cc, 1) <= budget:
-            return M, Cc, True, S
-    if smem_bytes(M, n_alleles, Cp, 0) > budget:
-        raise ValueError(f"{m_max} haplotype slots do not fit the evaluation "
+    if smem_bytes(M, n_alleles, C, 1) <= budget:
+        return M, True, S
+    if smem_bytes(M, n_alleles, C, 0) > budget:
+        raise ValueError(f"{H} haplotype slots do not fit the evaluation "
                          f"kernel's shared memory ({budget} bytes)")
     runs = max(1, EVAL_SCRATCH_BYTES // (K * eval_scratch_bytes(M, n_alleles,
-                                                                Cp)))
-    return M, Cp, False, max(S, -(-N // runs))
+                                                                C)))
+    return M, False, max(S, -(-N // runs))
 
 
-def eval_slots(nok) -> int:
-    """The largest ok count of a batch (`eval_layout`'s nok), read to the
-    host for `eval_plan`."""
-    return int(nok.max())
-
-
-def eval_scratch_bytes(M, n_alleles, Cc):
+def eval_scratch_bytes(M, n_alleles, C):
     """Device scratch of one block of the evaluation kernel's device-memory
-    plan: the [slot][candidate] row sums and the cell grids."""
-    return 4 * Cc * (M + n_alleles * (n_alleles + 1) // 2)
+    plan: the [slot][candidate] row sums and the cell grids, C padded to
+    4."""
+    return 4 * (-(-C // 4) * 4) * (M + n_alleles * (n_alleles + 1) // 2)
 
 
 def evaluate_candidates_kernel(bits, allele, fA, fB, g_cand, geno_sel, a1,
@@ -286,7 +276,7 @@ def evaluate_candidates_kernel(bits, allele, fA, fB, g_cand, geno_sel, a1,
     g_cand int8 [K, C, N], geno_sel int8 [K, N, 128], a1/a2 int32 [N],
     is_oob bool [K, N], B float32 [K, N]) -> (acc int32 [K, C], ll float32
     [K, C]). `smem_budget` caps the kernel's shared memory (`eval_plan`);
-    every plan gives bitwise the same results."""
+    both plans give bitwise the same results."""
     _check_eval(bits, allele, fA, fB, g_cand, geno_sel, a1, a2, is_oob, B,
                 n_alleles)
     if fA.device.type == "cpu":
@@ -304,15 +294,13 @@ def evaluate_candidates_kernel(bits, allele, fA, fB, g_cand, geno_sel, a1,
     if N == 0:
         return acc.zero_(), ll.zero_()
     lib = _build.load()
+    M, shared, S = eval_plan(H, A, C, K, N, lib.hibag_eval_smem,
+                             smem_budget)
     hb, al, fq, nok = eval_layout(bits, allele, fA, fB, A)
-    # the wrapper's one device-to-host sync: sizing shared memory by the
-    # largest ok count, not by H, keeps more blocks on an SM (PERF.md)
-    M, Cc, shared, S = eval_plan(eval_slots(nok), A, C, K, N,
-                                 lib.hibag_eval_smem, smem_budget)
     gscratch = None
     if not shared:
         gscratch = torch.empty(
-            K * -(-N // S) * eval_scratch_bytes(M, A, Cc) // 4,
+            K * -(-N // S) * eval_scratch_bytes(M, A, C) // 4,
             dtype=torch.float32, device=dev)
     oob = is_oob.to(torch.uint8)
     accp = torch.empty((K, C, N), dtype=torch.int32, device=dev)
@@ -325,8 +313,8 @@ def evaluate_candidates_kernel(bits, allele, fA, fB, g_cand, geno_sel, a1,
             a2.data_ptr(), oob.data_ptr(), B.data_ptr(), tab.data_ptr(),
             accp.data_ptr(), llp.data_ptr(),
             gscratch.data_ptr() if gscratch is not None else None,
-            acc.data_ptr(), ll.data_ptr(), K, H, N, C, A, M, Cc, S,
-            int(shared), torch.cuda.current_stream(dev).cuda_stream)
+            acc.data_ptr(), ll.data_ptr(), K, H, N, C, A, M, S, int(shared),
+            torch.cuda.current_stream(dev).cuda_stream)
     _raise_if_failed(lib, err, "evaluation")
     LAUNCHES["evaluate_candidates_kernel"] += 1
     return acc, ll

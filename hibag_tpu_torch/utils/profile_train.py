@@ -10,8 +10,7 @@ cell: the wall time of three plain calls after a warm-up, the device time
 (kernels and copies, each once) and idle share of one call under
 torch.profiler with its top device ops,
 and the time of each layer of the growth step (draw, pair matching, EM
-kernel, EM loop, erase, evaluation kernel and, inside it, its one
-device-to-host read, decide) under timers that
+kernel, EM loop, erase, evaluation kernel, decide) under timers that
 synchronise the card around each layer. The timers add a synchronisation
 per call, so their total is above the plain wall time.
 """
@@ -39,7 +38,6 @@ LAYERS = (
     ("hibag_tpu_torch.models.train_fused", "erase_rare", "erase"),
     ("hibag_tpu_torch.ops.train_step", "evaluate_candidates_kernel",
      "eval_kernel"),
-    ("hibag_tpu_torch.ops.train_step", "eval_slots", "eval_sync"),
     ("hibag_tpu_torch.models.train_fused", "_decide", "decide"),
     ("hibag_tpu_torch.models.train_fused", "_step", "step"),
 )

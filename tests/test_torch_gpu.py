@@ -329,7 +329,7 @@ def test_eval_kernel_heterozygous_words(cuda, het_words):
 @pytest.mark.parametrize("K,C,H,S", [(2, 64, 256, 48), (1, 64, 4096, 8),
                                      (25, 64, 128, 64), (25, 32, 128, 64)])
 def test_eval_kernel_identical_candidates(cuda, K, C, H, S):
-    """Identical candidates across float4 and chunk boundaries
+    """Identical candidates across float4 boundaries
     (chip_smoke.EVAL_TWINS, those below C): bitwise equal counts and
     -2logLik; H=4,096 takes the device-memory plan; K=25, C=32, H=128 is
     the headline step."""
@@ -342,11 +342,11 @@ def test_eval_kernel_identical_candidates(cuda, K, C, H, S):
 
 @pytest.mark.gpu
 def test_eval_kernel_plans_agree(cuda):
-    """The shared plan in chunks of 4 candidates and the device-memory plan
-    give bitwise the default plan's results (chip_smoke._check_eval_plans)."""
+    """The device-memory plan gives bitwise the default (shared-memory)
+    plan's results (chip_smoke._check_eval_plans)."""
     c = chip_smoke._train_case(np.random.default_rng(50), 2, 17, 256, 14, 40,
                                cuda, twins=chip_smoke.EVAL_TWINS)
-    assert len(chip_smoke._check_eval_plans(c, "plans")) == 3
+    assert len(chip_smoke._check_eval_plans(c, "plans")) == 2
 
 
 @pytest.mark.gpu

@@ -182,26 +182,24 @@ def test_eval_layout_keeps_each_alleles_slots():
 
 
 def test_eval_plan_prefers_shared_memory():
-    """eval_plan keeps everything in shared memory at the largest chunk of
-    candidates that fits the budget, else goes to device memory at one
-    chunk with its scratch capped, and raises when not even the slot
-    records fit."""
-    def smem(M, A, Cc, shared):      # the kernel's layout, by its terms
-        return (1040 + 12 * Cc + 16 * ((A + 4) // 4) + 24 * M
-                + shared * 4 * Cc * (3 * M + A * (A + 1) // 2))
-    assert ts.eval_plan(256, 14, 17, 8, 1024, smem) == (256, 20, True, 8)
-    assert ts.eval_plan(1022, 14, 17, 8, 1024, smem) == (1024, 16, True, 8)
+    """eval_plan keeps the frequencies, scratch and grids in shared memory
+    when they fit the budget, else goes to device memory with its scratch
+    capped, and raises when not even the slot records fit."""
+    def smem(M, A, C, shared):       # the kernel's layout, by its terms
+        Cp = -(-C // 4) * 4
+        return (1040 + 12 * Cp + 16 * ((A + 4) // 4) + 24 * M
+                + shared * 4 * Cp * (3 * M + A * (A + 1) // 2))
+    assert ts.eval_plan(256, 14, 17, 8, 1024, smem) == (256, True, 8)
+    assert ts.eval_plan(254, 14, 17, 25, 64, smem) == (256, True, 2)
+    assert ts.eval_plan(1024, 14, 17, 8, 1024, smem) == (1024, False, 8)
     assert ts.eval_plan(256, 14, 17, 8, 1024, smem,
-                        smem(256, 14, 8, 1)) == (256, 8, True, 8)
-    assert ts.eval_plan(4096, 14, 64, 1, 16, smem) == (4096, 64, False, 1)
-    assert ts.eval_plan(256, 14, 17, 8, 1024, smem,
-                        smem(256, 14, 20, 0)) == (256, 20, False, 8)
+                        smem(256, 14, 17, 0)) == (256, False, 8)
     # 8 classifiers of 4,096 slots and 128 alleles: 3.2 MB of scratch a
     # block, so 42 runs of 25 samples each, not 128 of 8
-    per = ts.eval_scratch_bytes(4096, 128, 64)
+    per = ts.eval_scratch_bytes(4096, 128, 61)
     assert per == 4 * 64 * (4096 + 8256)
-    M, Cc, shared, S = ts.eval_plan(4096, 128, 64, 8, 1024, smem)
-    assert (M, Cc, shared, S) == (4096, 64, False, 25)
+    M, shared, S = ts.eval_plan(4096, 128, 61, 8, 1024, smem)
+    assert (M, shared, S) == (4096, False, 25)
     assert 8 * -(-1024 // S) * per <= ts.EVAL_SCRATCH_BYTES
     assert 8 * -(-1024 // (S - 1)) * per > ts.EVAL_SCRATCH_BYTES
     with pytest.raises(ValueError, match="shared memory"):
