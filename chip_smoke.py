@@ -41,6 +41,14 @@ Phases, one line each (any failure raises and the exit code is non-zero):
                difference over all printed); each kernel run twice must
                agree bitwise. The EM's packed and re-matched mask tiers
                against its int8 tier through em_all_candidates. The
+               packed EM kernel also with one allele at H=1,024 (whole
+               blocks match: the pair lists overflow to the block), S=5,
+               every B = 0, C = 1 and C = 64, each bitwise equal under the
+               forced device-memory plan and with every sample taken by the
+               block (no pair lists), and classifiers stepped alone bitwise equal to a
+               batch; timed (three 10-launch means) at the slice's, the
+               headline step's and a re-seated mid-scale classifier's
+               shapes (PACKED_SHAPES). The
                evaluation kernel also on samples with heterozygous codes in
                0..4 of the four 32-SNP words, at C=64 with identical
                candidates across float4 boundaries (EVAL_TWINS,
@@ -530,6 +538,115 @@ def _check_em_tiers(dev):
     return worst
 
 
+#: (K, C, H, A, S) where the packed EM kernel's launches happen: the
+#: headline training step, and a mid-scale classifier re-seated at 512
+#: slots (the packed tier's K=1 calls of phase 5)
+PACKED_SHAPES = ((25, 32, 128, 14, 64), (1, 17, 512, 14, 1000))
+
+
+def _packed_variants(c, label):
+    """The packed EM kernel on c under the budget that forces its
+    device-memory plan and with a pair list of 0 (every sample taken by
+    the whole block): both must give bitwise the default's outputs.
+    Returns the default plan (G, R, shared)."""
+    from hibag_tpu_torch.ops import _build
+    from hibag_tpu_torch.ops import train_step as ts
+
+    _, _, args = _em_calls(c)["em_estep_packed"]
+    want = ts.em_estep_packed(*args)
+    K, C, H = c["fA"].shape
+    smem = _build.load().hibag_em_packed_smem
+    plan = ts.em_packed_plan(H, C, int(c["B"].shape[1]), smem)
+    device = int(smem(H, C, ts.EM_PAIR_LIST, 0))
+    for kw in ({"smem_budget": device}, {"pair_list": 0},
+               {"smem_budget": device, "pair_list": 0}):
+        got = ts.em_estep_packed(*args, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"em_estep_packed {label}: {kw} differs "
+                                 "from the default plan")
+    return plan
+
+
+def _check_packed_alone(c, label):
+    """Each classifier of c stepped alone by the packed EM kernel gives
+    bitwise its dfA, dfB and dll inside the batch."""
+    from hibag_tpu_torch.ops import train_step as ts
+
+    _, _, args = _em_calls(c)["em_estep_packed"]
+    batch = ts.em_estep_packed(*args)
+    for k in range(c["fA"].shape[0]):
+        one = ts.em_estep_packed(*(x[k:k + 1].contiguous() for x in args[:5]),
+                                 args[5])
+        torch.cuda.synchronize()
+        if not all(torch.equal(x[k:k + 1], y) for x, y in zip(batch, one)):
+            raise AssertionError(f"em_estep_packed {label}: classifier {k} "
+                                 "alone differs from the batch")
+
+
+def _check_packed_cases(rng, dev):
+    """Phase 3b's packed EM cases, each against the plain version (rtol
+    1e-4, atol 1e-9), run twice bitwise, and bitwise equal under the forced
+    device-memory plan and with every sample taken by the block: one allele
+    at H=1,024 (whole blocks match, the pair lists overflow), S below one
+    batch of warps, every B = 0, C = 1 and C = 64 (at H=128 in shared
+    memory, at H=256 in device memory); then classifiers stepped alone and
+    in a batch, bitwise equal. Returns the max abs error."""
+    name = "em_estep_packed"
+    worst = 0.0
+    for K, C, H, A, S, what in ((1, 17, 1024, 1, 32, "one allele"),
+                                (2, 17, 256, 14, 5, "S=5"),
+                                (2, 17, 256, 14, 64, "every B = 0"),
+                                (2, 1, 256, 14, 64, "C=1"),
+                                (2, 64, 128, 14, 64, "C=64"),
+                                (2, 64, 256, 14, 40, "C=64")):
+        c = _train_case(rng, K, C, H, A, S, dev)
+        if what == "every B = 0":
+            c["B"].zero_()
+        label = f"K={K} C={C} H={H} A={A} S={S} {what}"
+        e = _check_train_kernel(name, *_em_calls(c)[name], label)
+        worst = max(worst, e)
+        plan = _packed_variants(c, label)
+        pairs = (c["mask"] != 0).sum(dim=(2, 3))
+        print(f"[train-kernel] {name} {label}: plan (G, R, shared) {plan}, "
+              f"pairs per sample {int(pairs.min())}..{int(pairs.max())}; "
+              f"bitwise deterministic, the forced device plan and block-taken "
+              f"samples "
+              f"bitwise equal, max abs err {e:.3e}")
+    c = _train_case(rng, 4, 17, 256, 14, 100, dev)
+    _check_packed_alone(c, "K=4 C=17 H=256 A=14 S=100")
+    print(f"[train-kernel] {name} K=4 C=17 H=256 A=14 S=100: each classifier "
+          "alone bitwise equal to the batch")
+    return worst
+
+
+def _means(fn, n=3, reps=10):
+    """n means of `reps` launches each (_cuda_ms)."""
+    return [_cuda_ms(fn, reps) for _ in range(n)]
+
+
+def _packed_times(rng, dev, c, label, record):
+    """Three 10-launch means of the packed EM kernel at the slice's shape
+    (c) and at PACKED_SHAPES, each checked first, with its bound; adds them
+    to `record` and returns them as text."""
+    from hibag_tpu_torch.ops import train_step as ts
+
+    name = "em_estep_packed"
+    out = []
+    for shape in (None, *PACKED_SHAPES):
+        if shape is not None:
+            c = _train_case(rng, *shape[:4], shape[4], dev, n_sel=16)
+            label = "K={} C={} H={} A={} S={}".format(*shape)
+            _check_train_kernel(name, *_em_calls(c)[name], label)
+        args = _em_calls(c)[name][2]
+        ms = _means(lambda: ts.em_estep_packed(*args))
+        bound = _train_bound(name, c)
+        record.setdefault("at", {})[label] = {"ms": ms, **bound}
+        out.append(f"{label}: {' / '.join(f'{t:.4f}' for t in ms)} ms, bound "
+                   f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+    return "packed kernel, three 10-launch means: " + "; ".join(out)
+
+
 def phase_train_kernels(dev):
     """Phase 3b; returns {name: {"max_abs_err", "ms", "plain_ms"}}."""
     rng = np.random.default_rng(SEED + 3)
@@ -572,6 +689,9 @@ def phase_train_kernels(dev):
     _check_em_tiers(dev)
     _check_eval_cases(rng, dev)
 
+    err["em_estep_packed"] = max(err["em_estep_packed"],
+                                 _check_packed_cases(rng, dev))
+
     # at the training slice's shape
     c = _train_case(rng, 8, 17, 256, 14, 1024, dev, n_sel=16)
     calls = dict(_em_calls(c))
@@ -587,6 +707,9 @@ def phase_train_kernels(dev):
         timing[name] = {"max_abs_err": err[name], "ms": ms,
                         "plain_ms": plain_ms, **bound}
         extra = ""
+        if name == "em_estep_packed":
+            timing[name]["shape"] = label
+            extra = "; " + _packed_times(rng, dev, c, label, timing[name])
         if name == "evaluate_candidates_kernel":
             old = _train_bound(name, c, flops_per_term=12)
             extra = (f"; bound at 12 float operations per pair-candidate "

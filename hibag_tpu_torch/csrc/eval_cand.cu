@@ -13,8 +13,12 @@
 // row-major maximum of S * (2 - I) as the best guess, the
 // CHLATypeList::Compare count gated by oob and total > 0, and
 // -2 B log(max(post, 1e-37)), as hibag_tpu/models/em.py::evaluate_candidates.
-// A total or true-pair score below FLT_MIN counts as 0: hibag_tpu reads such
-// a sum as 0 because XLA flushes each of its denormal terms.
+// Denormals: hibag_tpu's sums run under XLA's flush of float32 denormals, so
+// this source alone is compiled with -ftz=true (ops/_build.py SOURCE_FLAGS):
+// every float32 operation here flushes denormal operands and results to 0
+// (a penalty of distance 8 or 9 above dmin, a product or partial sum below
+// FLT_MIN). A total or true-pair score below FLT_MIN counts as 0 as well,
+// as the plain version reads it.
 //
 // What bounds it on the H100: float work, C * m^2 / 2 pair-candidate terms
 // per (k, n) for m ok haplotypes at 2 FMAs each (the TPU kernel's own

@@ -20,6 +20,8 @@ candidate evaluation of :1920-1979 (CVariableSelection).
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -428,6 +430,33 @@ def _evaluate_one(bits, allele, fA, fB, g_cand, geno_sel, a1, a2, is_oob, B,
     return acc, ll
 
 
+def _flushing() -> bool:
+    """Whether float32 arithmetic on the CPU flushes denormals to zero now
+    (PyTorch has no getter for the setting)."""
+    return bool(torch.tensor([2.0 ** -140], dtype=torch.float32) * 1.0 == 0)
+
+
+@contextlib.contextmanager
+def flush_denormals():
+    """Float32 denormals flushed to zero on the CPU inside the block: the
+    counterpart of XLA's flush of float32 denormals, which hibag_tpu's sums
+    run under. The setting is the calling thread's (intra-op worker threads
+    keep the state they were started with), so the block runs on one
+    thread. Restores the caller's setting and thread count after; raises
+    where the CPU cannot flush, since the sums would then differ from
+    hibag_tpu's."""
+    was, threads = _flushing(), torch.get_num_threads()
+    if not torch.set_flush_denormal(True):
+        raise RuntimeError("this CPU cannot flush float32 denormals, so the "
+                           "evaluation would not match hibag_tpu's")
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+        torch.set_flush_denormal(was)
+
+
 def evaluate_candidates(bits, allele, fA, fB, g_cand, geno_sel, a1, a2,
                         is_oob, B, n_alleles, per_sample=False):
     """OOB best-guess accuracy count and in-bag -2logLik of every candidate,
@@ -442,9 +471,14 @@ def evaluate_candidates(bits, allele, fA, fB, g_cand, geno_sel, a1, a2,
     over the base haplotypes for all candidates, each candidate adding its
     2x2 bilinear forms weighted by q^delta of the new SNP
     (_OutOfBagAccuracy / _InBagLogLik, src/LibHLA.cpp:1934-1979).
+    On CPU tensors it runs under ``flush_denormals``, the counterpart of
+    XLA's flush of float32 denormals; PyTorch's CUDA ops keep denormals.
     """
-    out = [_evaluate_one(bits[k], allele[k], fA[k], fB[k], g_cand[k],
-                         geno_sel[k], a1, a2, is_oob[k], B[k], n_alleles,
-                         per_sample)
-           for k in range(fA.shape[0])]
+    scope = (flush_denormals() if fA.device.type == "cpu"
+             else contextlib.nullcontext())
+    with scope:
+        out = [_evaluate_one(bits[k], allele[k], fA[k], fB[k], g_cand[k],
+                             geno_sel[k], a1, a2, is_oob[k], B[k], n_alleles,
+                             per_sample)
+               for k in range(fA.shape[0])]
     return tuple(torch.stack(x) for x in zip(*out))

@@ -7,6 +7,11 @@ together, and one more nvcc links them. The library goes to
 ``build/hibag_tpu_torch/`` at the root of the checkout, named by a hash of
 the sources, headers and flags, so an edited source or header builds anew and an unchanged one
 loads the library already there. A missing nvcc or a failed build raises.
+
+``SOURCE_FLAGS`` adds flags for one source alone: the candidate evaluation
+(``eval_cand.cu``) compiles with ``-ftz=true``, so its float32 arithmetic
+flushes denormals to zero as XLA's does for hibag_tpu; the other kernels
+keep denormals.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "hibag_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
+#: extra nvcc flags of single sources, by file name
+SOURCE_FLAGS = {"eval_cand.cu": ["-ftz=true"]}
 
 
 def find_nvcc() -> str:
@@ -49,6 +56,7 @@ def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in srcs:
         h.update(os.path.basename(s).encode())
+        h.update(" ".join(SOURCE_FLAGS.get(os.path.basename(s), [])).encode())
         with open(s, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"libhibag_tpu_torch_{h.hexdigest()[:16]}.so")
@@ -66,7 +74,8 @@ def build() -> str:
     nvcc = find_nvcc()
     tmp = f"{out}.{os.getpid()}.tmp"
     objs = [f"{tmp}.{os.path.basename(s)}.o" for s in srcs]
-    cmds = [[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", o, s]
+    cmds = [[nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(os.path.basename(s), []),
+             "-Xptxas", "-v", "-c", "-o", o, s]
             for s, o in zip(srcs, objs)]
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
@@ -96,8 +105,12 @@ def load() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.hibag_ens_acc.argtypes = [p] * 10 + [i] * 5 + [p]
     lib.hibag_ens_acc.restype = i
-    lib.hibag_em_estep.argtypes = [p] * 10 + [i] * 6 + [ctypes.c_float, p]
+    lib.hibag_em_estep.argtypes = [p] * 10 + [i] * 5 + [ctypes.c_float, p]
     lib.hibag_em_estep.restype = i
+    lib.hibag_em_packed.argtypes = [p] * 11 + [i] * 8 + [ctypes.c_float, p]
+    lib.hibag_em_packed.restype = i
+    lib.hibag_em_packed_smem.argtypes = [i] * 4
+    lib.hibag_em_packed_smem.restype = ctypes.c_longlong
     lib.hibag_eval_cand.argtypes = [p] * 16 + [i] * 8 + [p]
     lib.hibag_eval_cand.restype = i
     lib.hibag_post_scores.argtypes = [p] * 10 + [i] * 4 + [p]

@@ -37,10 +37,17 @@ EVAL_SMEM_BYTES = 224 * 1024
 #: most device scratch the evaluation kernel's device-memory plan takes
 #: (it holds one classifier's run at least)
 EVAL_SCRATCH_BYTES = 1024 ** 3
-#: sample groups of the EM kernel: a block owns a run of samples, the
+#: sample groups of the EM kernels: a block owns a run of samples, the
 #: number of runs depends on S only
 EM_MAX_GROUPS = 64
 EM_GROUP_SAMPLES = 16
+#: the packed EM kernel: samples a block takes at once (a warp each), the
+#: pairs a warp lists per sample (a sample with more is taken by the whole
+#: block; the sums are the same either way), and the shared memory it may
+#: ask for
+EM_PACKED_WARPS = 8
+EM_PAIR_LIST = 64
+EM_SMEM_BYTES = 224 * 1024
 
 #: kernel launches made by each wrapper; never the plain versions'
 LAUNCHES = {"em_estep": 0, "em_estep_packed": 0,
@@ -96,7 +103,7 @@ def _check_em(fA, fB, mask, gc, B, packed):
     return K, C, H, S
 
 
-def _em_launch(fA, fB, mask, gc, B, total_n, packed):
+def _em_launch(fA, fB, mask, gc, B, total_n):
     from . import _build
 
     K, C, H = fA.shape
@@ -113,9 +120,57 @@ def _em_launch(fA, fB, mask, gc, B, total_n, packed):
         err = lib.hibag_em_estep(
             mask.data_ptr(), fA.data_ptr(), fB.data_ptr(), gc.data_ptr(),
             B.data_ptr(), part.data_ptr(), dllp.data_ptr(), dfA.data_ptr(),
-            dfB.data_ptr(), dll.data_ptr(), K, S, H, C, G, int(packed),
-            float(total_n), torch.cuda.current_stream(dev).cuda_stream)
+            dfB.data_ptr(), dll.data_ptr(), K, S, H, C, G, float(total_n),
+            torch.cuda.current_stream(dev).cuda_stream)
     _raise_if_failed(lib, err, "EM")
+    return dfA, dfB, dll
+
+
+def em_packed_plan(H, C, S, smem_bytes, budget=EM_SMEM_BYTES,
+                   pair_list=EM_PAIR_LIST):
+    """How the packed EM kernel runs S samples of a classifier of H slots
+    and C candidates: (G, R, shared) with R samples a block (at least a
+    batch of EM_PACKED_WARPS, and at most EM_MAX_GROUPS runs) in G = ceil(S
+    / R) runs. Both come from S alone, so a classifier's sums do not depend
+    on the batch it is trained in. `shared`: whether the frequencies and
+    the accumulator sit in shared memory (they do when
+    `smem_bytes(H, C, pair_list, 1)`, the kernel's shared memory, fits
+    `budget` bytes; else both are in device memory, with bitwise the same
+    sums). Raises when not even the pair lists fit."""
+    R = min(max(EM_PACKED_WARPS, -(-S // EM_MAX_GROUPS)), max(S, 1))
+    G = max(1, -(-S // R))
+    if smem_bytes(H, C, pair_list, 1) <= budget:
+        return G, R, True
+    if smem_bytes(H, C, pair_list, 0) > budget:
+        raise ValueError(f"pair lists of {pair_list} do not fit the packed EM "
+                         f"kernel's shared memory ({budget} bytes)")
+    return G, R, False
+
+
+def _em_packed_launch(fA, fB, packed, gc, B, total_n, smem_budget,
+                      pair_list):
+    from . import _build
+
+    K, C, H = fA.shape
+    S = packed.shape[1]
+    dev = fA.device
+    lib = _build.load()
+    G, R, shared = em_packed_plan(H, C, S, lib.hibag_em_packed_smem,
+                                  smem_budget, pair_list)
+    dfA = torch.empty_like(fA)
+    dfB = torch.empty_like(fB)
+    dll = torch.empty((K, C), dtype=torch.float32, device=dev)
+    part = torch.empty((K, G, 2, C, H), dtype=torch.float32, device=dev)
+    dllp = torch.empty((K, G, C), dtype=torch.float32, device=dev)
+    tmask = torch.empty((K, G, H // 32), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.hibag_em_packed(
+            packed.data_ptr(), fA.data_ptr(), fB.data_ptr(), gc.data_ptr(),
+            B.data_ptr(), part.data_ptr(), dllp.data_ptr(), tmask.data_ptr(),
+            dfA.data_ptr(), dfB.data_ptr(), dll.data_ptr(), K, S, H, C, G, R,
+            pair_list, int(shared), float(total_n),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_if_failed(lib, err, "packed EM")
     return dfA, dfB, dll
 
 
@@ -128,18 +183,22 @@ def em_estep(fA, fB, mask, g_cand, B, total_n):
     _check_em(fA, fB, mask, g_cand, B, packed=False)
     if fA.device.type == "cpu":
         return em_estep_ref(fA, fB, mask, g_cand, B, total_n)
-    out = _em_launch(fA, fB, mask, g_cand, B, total_n, packed=False)
+    out = _em_launch(fA, fB, mask, g_cand, B, total_n)
     LAUNCHES["em_estep"] += 1
     return out
 
 
-def em_estep_packed(fA, fB, packed, g_cand, B, total_n):
+def em_estep_packed(fA, fB, packed, g_cand, B, total_n, *,
+                    smem_budget=EM_SMEM_BYTES, pair_list=EM_PAIR_LIST):
     """`em_estep` from the bit-packed mask uint8 [K, S, H, H // 8] (bit b of
-    byte k is column 8k + b)."""
+    byte k is column 8k + b). `smem_budget` caps the kernel's shared memory
+    and `pair_list` the pairs a warp lists per sample (`em_packed_plan`);
+    every setting gives bitwise the same results."""
     _check_em(fA, fB, packed, g_cand, B, packed=True)
     if fA.device.type == "cpu":
         return em_estep_packed_ref(fA, fB, packed, g_cand, B, total_n)
-    out = _em_launch(fA, fB, packed, g_cand, B, total_n, packed=True)
+    out = _em_packed_launch(fA, fB, packed, g_cand, B, total_n, smem_budget,
+                            pair_list)
     LAUNCHES["em_estep_packed"] += 1
     return out
 

@@ -35,3 +35,14 @@ def test_headers_are_hashed(csrc):
     before = _build.library_path()
     (csrc / "pair_cells.cuh").unlink()
     assert _build.library_path() != before
+
+
+def test_source_flags_are_hashed(csrc, monkeypatch):
+    """A per-source flag is part of the library's name: the evaluation
+    kernel's -ftz=true, and any change to it, builds anew."""
+    assert _build.SOURCE_FLAGS["eval_cand.cu"] == ["-ftz=true"]
+    before = _build.library_path()
+    monkeypatch.setitem(_build.SOURCE_FLAGS, "eval_cand.cu", [])
+    assert _build.library_path() != before
+    monkeypatch.setitem(_build.SOURCE_FLAGS, "em_estep.cu", ["-ftz=true"])
+    assert _build.library_path() != before

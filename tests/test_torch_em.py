@@ -204,20 +204,9 @@ def test_erase_rare_exact():
             np.testing.assert_allclose(x[k].numpy(), y, rtol=1e-6)
 
 
-@pytest.fixture
-def flush_denormals():
-    """XLA on the CPU flushes float32 denormals to zero; PyTorch keeps them
-    unless asked. A sample whose whole score grid lies below 1.2e-38 then
-    has total 0 (not counted) in hibag_tpu and total > 0 in the port, so
-    the exact comparison runs with PyTorch flushing too."""
-    assert torch.set_flush_denormal(True)
-    yield
-    torch.set_flush_denormal(False)
-
-
 @pytest.mark.parametrize("seed,N,H,typed", [(1, 24, 128, False),
                                             (7, 200, 64, True)])
-def test_evaluate_candidates_matches(seed, N, H, typed, flush_denormals):
+def test_evaluate_candidates_matches(seed, N, H, typed):
     """Untyped samples put many true pairs far from every haplotype pair,
     where the true pair's posterior underflows, so the large case is typed,
     as a training panel is."""
@@ -246,13 +235,13 @@ def test_evaluate_candidates_matches(seed, N, H, typed, flush_denormals):
 
 
 @pytest.mark.parametrize("seed,N,H", [(3, 400, 64), (4, 200, 128),
-                                      (5, 200, 64)])
+                                      (5, 200, 64), (6, 300, 64),
+                                      (7, 200, 64), (2, 200, 64)])
 def test_evaluate_candidates_denormal_rule(seed, N, H):
-    """Untyped samples, PyTorch keeping denormals: true-pair scores that are
-    sums of denormal terms (hibag_tpu reads them as 0 under XLA's flush)
-    count as 0 in the port too, so counts are exact and -2logLik agrees at
-    rtol 1e-4. Other seeds stay further apart, as XLA also flushes inside
-    its factorised sums (ROADMAP.md, queue 3 fault 2)."""
+    """Untyped samples, whose true-pair scores can be sums of denormal
+    terms: the plain evaluation flushes denormals inside its sums as XLA
+    does for hibag_tpu (and counts a sum below FLT_MIN as 0), so counts
+    are exact and -2logLik agrees at rtol 1e-4."""
     rng = np.random.default_rng(seed + 100)
     p = _problem(seed, N=N, H=H)
     drop = rng.random((2, *p["fA"].shape)) < 0.3
@@ -271,6 +260,28 @@ def test_evaluate_candidates_denormal_rule(seed, N, H):
     assert not bool(((tq > 0) & (tq < np.finfo(np.float32).tiny)).any())
     np.testing.assert_array_equal(acc[0].numpy(), np.asarray(acc_r))
     np.testing.assert_allclose(ll[0].numpy(), np.asarray(ll_r), rtol=1e-4)
+
+
+@pytest.mark.parametrize("caller", [False, True])
+def test_evaluate_candidates_restores_the_flush_setting(caller):
+    """The plain evaluation flushes denormals while it runs and leaves the
+    caller's setting as it found it, on or off."""
+    p = _problem(5, N=16)
+    args = (_t(p["bits"]), _t(p["allele"]), _t(p["fA"]), _t(p["fB"]),
+            _t(p["g_cand"]), _t(p["geno_sel"]), _t(p["a1"], False),
+            _t(p["a2"], False), _t(p["B"] == 0), _t(p["B"]), p["A"])
+    threads = torch.get_num_threads()
+    assert torch.set_flush_denormal(caller)
+    try:
+        assert port._flushing() == caller
+        port.evaluate_candidates(*args)
+        assert port._flushing() == caller
+        with port.flush_denormals():
+            assert port._flushing() and torch.get_num_threads() == 1
+        assert port._flushing() == caller
+        assert torch.get_num_threads() == threads
+    finally:
+        torch.set_flush_denormal(False)
 
 
 def test_evaluate_candidates_per_sample():

@@ -298,6 +298,29 @@ def test_em_mask_tiers_agree(cuda):
 
 
 @pytest.mark.gpu
+def test_packed_em_edge_cases_and_plans(cuda):
+    """chip_smoke.py's packed EM cases: one allele at H=1,024 (the pair
+    lists overflow), S=5, every B = 0, C = 1 and C = 64 against the plain
+    version at rtol 1e-4, each bitwise equal run to run, under the forced
+    device-memory plan and with every sample taken by the block; classifiers
+    stepped alone bitwise equal to a batch."""
+    assert chip_smoke._check_packed_cases(np.random.default_rng(60),
+                                          cuda) < 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,C,H,A,S", chip_smoke.PACKED_SHAPES)
+def test_packed_em_alone_equals_batch(cuda, K, C, H, A, S):
+    """At the shapes where the packed kernel's launches happen, a
+    classifier stepped alone gives bitwise its results inside the batch,
+    and the plan variants agree bitwise."""
+    c = chip_smoke._train_case(np.random.default_rng(70 + H), min(K, 3), C,
+                               H, A, min(S, 256), cuda, n_sel=16)
+    chip_smoke._check_packed_alone(c, "alone")
+    chip_smoke._packed_variants(c, "variants")
+
+
+@pytest.mark.gpu
 def test_eval_kernel_on_untyped_samples(cuda):
     """Untyped samples: counts exact; -2logLik at rtol 1e-4 over the samples
     whose true pair scores at least 2^-100 (chip_smoke.py's rule)."""

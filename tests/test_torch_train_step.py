@@ -99,19 +99,9 @@ def test_em_estep_packed_plain_matches_packed_kernel():
                                rtol=1e-4)
 
 
-@pytest.fixture
-def flush_denormals():
-    """XLA on the CPU flushes float32 denormals; PyTorch on the CPU does so
-    only when asked (tests/test_torch_em.py::flush_denormals)."""
-    assert torch.set_flush_denormal(True)
-    yield
-    torch.set_flush_denormal(False)
-
-
 @pytest.mark.parametrize("seed,N,H,drop", [(1, 24, 128, 0.3),
                                            (7, 16, 640, 0.0)])
-def test_evaluate_plain_matches_eval_kernel(seed, N, H, drop,
-                                            flush_denormals):
+def test_evaluate_plain_matches_eval_kernel(seed, N, H, drop):
     """The cases of tests/test_step_pallas.py (test_eval_kernel_matches_jnp
     and test_eval_kernel_h640)."""
     rng = np.random.default_rng(seed)
@@ -204,6 +194,33 @@ def test_eval_plan_prefers_shared_memory():
     assert 8 * -(-1024 // (S - 1)) * per > ts.EVAL_SCRATCH_BYTES
     with pytest.raises(ValueError, match="shared memory"):
         ts.eval_plan(10000, 14, 17, 1, 1, smem)
+
+
+def test_em_packed_plan_depends_on_samples_only():
+    """em_packed_plan's runs come from S alone (at least a batch of
+    EM_PACKED_WARPS samples a block, at most EM_MAX_GROUPS runs), so a
+    classifier's sums do not depend on the batch K; the frequencies and the
+    accumulator go to shared memory where they fit the budget, else to
+    device memory; it raises when not even the pair lists fit."""
+    def smem(H, C, lcap, shared):    # the kernel's layout, by its terms
+        return (shared * 16 * C * H + 388 * C + 2 * H + 36 * (H // 32)
+                + 84 + 48 * lcap)
+    plan = lambda H, C, S, **kw: ts.em_packed_plan(H, C, S, smem, **kw)
+    assert ts.EM_PACKED_WARPS == 8 and ts.EM_MAX_GROUPS == 64
+    assert plan(256, 17, 1024) == (64, 16, True)      # the slice's step
+    assert plan(128, 32, 64) == (8, 8, True)          # the headline step
+    assert plan(512, 17, 1000) == (63, 16, True)      # a re-seated one
+    assert plan(1024, 17, 1024) == (64, 16, False)
+    assert plan(128, 1, 5) == (1, 5, True)
+    assert plan(128, 1, 0) == (1, 1, True)
+    assert plan(256, 17, 1024, budget=smem(256, 17, 512, 0)) \
+        == (64, 16, False)
+    for S in (1, 7, 8, 9, 63, 64, 65, 511, 512, 513, 1000, 4099):
+        G, R, _ = plan(256, 17, S)
+        assert G * R >= S > (G - 1) * R and G <= ts.EM_MAX_GROUPS
+        assert R >= min(S, ts.EM_PACKED_WARPS)
+    with pytest.raises(ValueError, match="shared memory"):
+        plan(4096, 64, 64, pair_list=5000)
 
 
 def test_pack_bits_layout():
