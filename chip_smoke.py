@@ -99,6 +99,22 @@ Phases, one line each (any failure raises and the exit code is non-zero):
                did not, accuracy >= 0.9, sane probabilities and matching, and
                calls equal to the float64 scan engine on the first 64 samples
                outside the tie margin.
+  8. host    — the host trainer on the card: train_parallel(mode="host",
+               device="cuda") of HOST_K classifiers on phase 5's panel
+               (mtry=17, one batch) twice, the second timed; checks that
+               the EM and evaluation kernels ran, the two runs' classifiers
+               are bitwise equal, frequencies sum to 1, mean OOB and
+               held-out accuracy (through the ensemble kernel) >= 0.9, and
+               that the first greedy step's EM step and evaluation through
+               the kernels match their plain versions on the same CUDA
+               tensors (EM at rtol 1e-4; counts exact, -2logLik at rtol
+               1e-4). Prints classifiers/s beside phase 5's, the greedy
+               steps, the launches per kernel and the EM mask tiers used.
+               Then train() of 4 classifiers through grow_classifier on
+               phase 6's panel; out_of_bag of the host model on the card
+               (one ensemble-kernel launch per classifier at least); and
+               publish -> .npz -> load -> predict, whose held-out calls
+               must equal the trained model's.
 The line before the last is the kernels' JSON record (each kernel's
 launches on its phase's timed main-path run, with the counts set to 0 just
 before it; its time and its plain version's; its bound from this run's
@@ -117,6 +133,8 @@ import numpy as np
 import torch
 
 SEED = 0
+#: classifiers of phase 8's host training (the batch)
+HOST_K = 8
 N_SLICE = 3840
 N_F64 = 256
 N_WIDE = 1024
@@ -884,6 +902,13 @@ def _same_classifiers(m1, m2):
                for a, b in zip(m1.classifiers, m2.classifiers))
 
 
+def _freq_sums(model, label):
+    for c in model.classifiers:
+        if abs(c.hap_freq.sum() - 1.0) > 1e-2:
+            raise AssertionError(f"{label}: hap_freq sums to "
+                                 f"{c.hap_freq.sum()}")
+
+
 def phase_train(card):
     """Phase 5; returns the main path's kernel launches."""
     from hibag_tpu_torch import predict, train_parallel
@@ -929,9 +954,7 @@ def phase_train(card):
     if same != 8:
         raise AssertionError(f"two trainings differ: {8 - same}/8 "
                              "classifiers not bitwise equal")
-    for c in model.classifiers:
-        if abs(c.hap_freq.sum() - 1.0) > 1e-2:
-            raise AssertionError(f"hap_freq sums to {c.hap_freq.sum()}")
+    _freq_sums(model, "train")
     oob = float(np.mean([c.oob_accuracy for c in model.classifiers]))
     if oob < 0.9:
         raise AssertionError(f"mean OOB accuracy {oob:.4f} < 0.9")
@@ -959,7 +982,7 @@ def phase_train(card):
           f"(500 samples); SNPs {n_snp}, haplotypes {n_hap}, freeze "
           f"re-seats {reseats[0]}; same SNP "
           f"sequence as engine='torch' on the card: {same_seq}/8 | {card}")
-    return launches
+    return launches, 8 / elapsed
 
 
 def phase_packed(card):
@@ -996,6 +1019,174 @@ def phase_packed(card):
           f"mean OOB {oob:.4f}, haplotypes {min(n_hap)}..{max(n_hap)} "
           f"(mean {np.mean(n_hap):.1f}) | {card}")
     return launches
+
+
+def _check_host_step(first, label):
+    """The first greedy step of a host training, recorded as its
+    grow_step call: one EM E+M step (int8 mask) and the candidate
+    evaluation on the kernels' converged, erased frequencies, each kernel
+    against its plain version on the same CUDA tensors (EM at rtol 1e-4,
+    counts exact, -2logLik at rtol 1e-4). Returns the max abs errors."""
+    from hibag_tpu_torch.constants import EM_INIT_VAL_FRAC
+    from hibag_tpu_torch.models import em
+    from hibag_tpu_torch.ops import train_step as ts
+
+    (bits, freq, allele, geno_sel, B, is_oob, g_cand, afreq, a1, a2, A,
+     rare, total_n, budget, engine), kw = first
+    if engine != "cuda":
+        raise AssertionError(f"{label}: the host trainer ran engine "
+                             f"{engine!r} on the card")
+    valid = freq > 0
+    v = valid.to(freq.dtype)[:, None, :]
+    fA0 = (freq[:, None, :] * (1.0 - afreq[..., None]) + EM_INIT_VAL_FRAC) * v
+    fB0 = (freq[:, None, :] * afreq[..., None] + EM_INIT_VAL_FRAC) * v
+    mask = em.match_pairs(bits, valid, allele, geno_sel, a1, a2).to(
+        torch.int8)
+    err_em = _check_train_kernel(
+        "em_estep", ts.em_estep, ts.em_estep_ref,
+        (fA0.contiguous(), fB0.contiguous(), mask, g_cand, B, total_n), label)
+    fA, fB, _, _ = em.em_all_candidates(
+        freq, valid, bits, allele, geno_sel, a1, a2, B, g_cand, afreq,
+        total_n, reltol=kw["reltol"], mask_budget=budget, engine="cuda")
+    fA, fB = em.erase_rare(fA, fB, rare)
+    err_ev = _check_train_kernel(
+        "evaluate_candidates_kernel", ts.evaluate_candidates_kernel,
+        ts.evaluate_candidates_ref,
+        (bits, allele, fA, fB, g_cand, geno_sel, a1, a2, is_oob, B, A),
+        label, twins=())
+    return err_em, err_ev
+
+
+def phase_host(card, fused_rate):
+    """Phase 8: the host trainer and the post-training surface on the card;
+    returns nothing (the kernels' line keeps phases 4-7's counts)."""
+    import collections
+
+    from hibag_tpu_torch import (AttrBagModel, out_of_bag, predict, publish,
+                                 train, train_parallel)
+    from hibag_tpu_torch.models import em
+    from hibag_tpu_torch.models import train as train_mod
+    from hibag_tpu_torch.ops import ens_acc
+    from hibag_tpu_torch.ops import train_step as ts
+    from hibag_tpu_torch.utils.synthetic import (PANEL_RECOMBINATION,
+                                                 synthetic_panel)
+
+    # (a) train_parallel(mode="host") on phase 5's panel
+    (table, geno), (htable, hgeno) = synthetic_panel(
+        SEED, 1000, 266, 14, n_held_out=500,
+        recombination=PANEL_RECOMBINATION)
+    kw = dict(n_classifiers=HOST_K, batch=HOST_K, seed=100, mtry=17,
+              verbose=False, with_matching=False, mode="host",
+              device="cuda")
+    first_model = train_parallel(table, geno, **kw)
+    torch.cuda.synchronize()
+    step, tier = train_mod.grow_step, em.mask_tier
+    first, steps, tiers = [], [0], collections.Counter()
+
+    def counted(*a, **k):
+        if not first:
+            first.append((a, k))
+        steps[0] += 1
+        return step(*a, **k)
+
+    def counted_tier(*a):
+        t = tier(*a)
+        tiers[t] += 1
+        return t
+
+    train_mod.grow_step, em.mask_tier = counted, counted_tier
+    for k in ts.LAUNCHES:
+        ts.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    model = train_parallel(table, geno, **kw)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(ts.LAUNCHES)
+    train_mod.grow_step, em.mask_tier = step, tier
+    if launches["em_estep"] + launches["em_estep_packed"] < 1:
+        raise AssertionError("host training launched no EM kernel")
+    if launches["evaluate_candidates_kernel"] < 1:
+        raise AssertionError("host training did not launch "
+                             "evaluate_candidates_kernel")
+    same = _same_classifiers(first_model, model)
+    if same != HOST_K:
+        raise AssertionError(f"two host trainings differ: {HOST_K - same}/"
+                             f"{HOST_K} classifiers not bitwise equal")
+    _freq_sums(model, "host")
+    oob = float(np.mean([c.oob_accuracy for c in model.classifiers]))
+    if oob < 0.9:
+        raise AssertionError(f"host: mean OOB accuracy {oob:.4f} < 0.9")
+    ens_acc.LAUNCHES = 0
+    res = predict(model, hgeno, device="cuda")
+    torch.cuda.synchronize()
+    if ens_acc.LAUNCHES < 1:
+        raise AssertionError("host: held-out predict did not launch ens_acc")
+    acc = res.accuracy_vs(htable.allele1, htable.allele2)
+    if acc < 0.9:
+        raise AssertionError(f"host: held-out accuracy {acc:.4f} < 0.9")
+    err_em, err_ev = _check_host_step(first[0], "host step 1")
+    n_hap = [c.n_haplo for c in model.classifiers]
+    print(f"[host] train_parallel(mode='host') N=1000 P=266 A=14 K={HOST_K} "
+          f"mtry=17: {HOST_K / elapsed:.4f} classifiers/s ({elapsed:.3f} s; "
+          f"fused, phase 5: {fused_rate:.4f}), {steps[0]} greedy "
+          f"steps, launches: EM int8 {launches['em_estep']}, EM packed "
+          f"{launches['em_estep_packed']}, eval "
+          f"{launches['evaluate_candidates_kernel']}; mask tiers "
+          f"{dict(tiers)}; runs bitwise equal {same}/{HOST_K}; mean OOB "
+          f"{oob:.4f}; held-out accuracy {acc:.4f} ({len(res.allele1)} "
+          f"samples, ens_acc "
+          f"launches {ens_acc.LAUNCHES}); haplotypes {min(n_hap)}..."
+          f"{max(n_hap)}; step 1 kernels vs plain: EM max abs err "
+          f"{err_em:.3e}, evaluation counts exact, -2logLik max abs err "
+          f"{err_ev:.3e} | {card}")
+
+    # (b) train() through grow_classifier on phase 6's panel
+    (t6, g6), _ = synthetic_panel(SEED + 2, 60, 1000, 14,
+                                  recombination=PANEL_RECOMBINATION)
+    for k in ts.LAUNCHES:
+        ts.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    serial = train(t6, g6, n_classifiers=4, seed=100, verbose=False,
+                   with_matching=False, device="cuda")
+    torch.cuda.synchronize()
+    el_b = time.perf_counter() - t0
+    lb = dict(ts.LAUNCHES)
+    if lb["em_estep"] + lb["em_estep_packed"] < 1 \
+            or lb["evaluate_candidates_kernel"] < 1:
+        raise AssertionError(f"train() did not launch the step kernels: {lb}")
+    _freq_sums(serial, "train()")
+    oob_b = float(np.mean([c.oob_accuracy for c in serial.classifiers]))
+    print(f"[host] train() N=60 P=1000 A=14 4 classifiers mtry=32: "
+          f"{4 / el_b:.4f} classifiers/s ({el_b:.3f} s, first call), "
+          f"launches: EM int8 {lb['em_estep']}, EM packed "
+          f"{lb['em_estep_packed']}, eval {lb['evaluate_candidates_kernel']};"
+          f" mean OOB {oob_b:.4f} | {card}")
+
+    # (c) out_of_bag of (a)'s model, publish -> .npz -> predict
+    ens_acc.LAUNCHES = 0
+    t0 = time.perf_counter()
+    oob_res = out_of_bag(model, table, geno, device="cuda")
+    torch.cuda.synchronize()
+    el_c = time.perf_counter() - t0
+    n_oob = ens_acc.LAUNCHES
+    if n_oob < HOST_K:
+        raise AssertionError(f"out_of_bag launched ens_acc {n_oob} times, "
+                             f"fewer than its {HOST_K} classifiers")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "published.npz")
+        publish(model, platform="synthetic").save(path)
+        pub = AttrBagModel.load(path)
+    if pub.n_snp >= model.n_snp or pub.sample_id is not None:
+        raise AssertionError("publish kept unused SNPs or sample IDs")
+    res_pub = predict(pub, hgeno, device="cuda")
+    if not (np.array_equal(res_pub.allele1, res.allele1)
+            and np.array_equal(res_pub.allele2, res.allele2)):
+        raise AssertionError("the published model's calls differ from the "
+                             "trained model's")
+    print(f"[host] out_of_bag: {el_c:.3f} s, ens_acc launches {n_oob}, "
+          f"acc.haplo {oob_res['overall']['acc.haplo']:.4f}; publish: "
+          f"{model.n_snp} -> {pub.n_snp} SNPs, held-out calls equal "
+          f"{len(res.allele1)}/{len(res.allele1)} | {card}")
 
 
 def _ordered_pair_case(dev):
@@ -1298,9 +1489,10 @@ def main():
           f"{int(clear.sum())}/{N_F64} clear samples | {card}")
 
     train_timing = phase_train_kernels(dev)
-    train_launches = phase_train(card)
+    train_launches, fused_rate = phase_train(card)
     train_launches["em_estep_packed"] = phase_packed(card)
     wide = phase_wide(dev, card)
+    phase_host(card, fused_rate)
 
     kernels = [{"name": "ens_acc", "route": "cuda",
                 "source": "hibag_tpu_torch/csrc/ens_acc.cu",

@@ -91,6 +91,17 @@ def get_lib() -> Optional[ctypes.CDLL]:
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
             ctypes.c_void_p, ctypes.c_int]
+        if hasattr(lib, "hibag_ordered_step"):
+            lib.hibag_ordered_step.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+                ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
+                ctypes.c_double, ctypes.c_double, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_int]
+            lib.hibag_ordered_step.restype = None
         _LIB = lib
     except OSError:
         _LIB = None
@@ -121,3 +132,57 @@ def align_codes(geno: np.ndarray, src_idx: np.ndarray, flip: np.ndarray,
     flipped = np.where((g <= 2) & flip[:, None].astype(bool), 2 - g, g)
     flipped[src_idx < 0] = 3
     return np.ascontiguousarray(flipped.T)
+
+
+def ordered_step(bits: np.ndarray, freq: np.ndarray, allele: np.ndarray,
+                 g_cand: np.ndarray, geno_sel: np.ndarray,
+                 a1: np.ndarray, a2: np.ndarray, is_oob: np.ndarray,
+                 B: np.ndarray, n_alleles: int, total_n: float,
+                 rare_prob: float, n_threads: int = 0):
+    """One full greedy-step candidate pass — doubled-list EM, rare erase,
+    OOB/log-lik evaluation — with the reference's exact serial summation
+    orders (hibag_ordered_step; see native/hibag_native.cpp for the
+    algorithm and reference citations).  bits [H, n_snp] uint8 current
+    list; freq [H] f64; allele [H] i32 nondecreasing; g_cand [C, N] i8;
+    geno_sel [N, L] i8; a1/a2 [N] i32; is_oob [N] bool; B [N] f64.
+    Returns (ok [C] bool, fA [C, H] f64, fB [C, H] f64, acc [C] i32,
+    loss [C] f64), or None when the native lib is unavailable (this
+    parity-only path has no NumPy fallback)."""
+    lib = get_lib()
+    if lib is None or not hasattr(lib, "hibag_ordered_step"):
+        return None
+    H_, N_ = bits.shape[0], g_cand.shape[1]
+    if N_ * H_ * H_ * 2 > 4 << 30:
+        raise MemoryError(
+            f"ordered parity mode materializes an [N, H, H] uint16 "
+            f"distance table ({N_}x{H_}x{H_} = "
+            f"{N_ * H_ * H_ * 2 / 2**30:.1f} GiB) — it is meant for "
+            "reference-panel scales, not cohort training")
+    bits = np.ascontiguousarray(bits, dtype=np.uint8)
+    freq = np.ascontiguousarray(freq, dtype=np.float64)
+    allele = np.ascontiguousarray(allele, dtype=np.int32)
+    g_cand = np.ascontiguousarray(g_cand, dtype=np.int8)
+    geno_sel = np.ascontiguousarray(geno_sel, dtype=np.int8)
+    a1 = np.ascontiguousarray(a1, dtype=np.int32)
+    a2 = np.ascontiguousarray(a2, dtype=np.int32)
+    is_oob = np.ascontiguousarray(is_oob, dtype=np.uint8)
+    B = np.ascontiguousarray(B, dtype=np.float64)
+    H, n_snp = bits.shape
+    C, N = g_cand.shape
+    L = geno_sel.shape[1]
+    if not (geno_sel.shape[0] == N and len(a1) == N and len(a2) == N
+            and len(is_oob) == N and len(B) == N):
+        raise ValueError("geno_sel, a1, a2, is_oob and B need N rows")
+    if len(freq) != H or len(allele) != H:
+        raise ValueError("freq and allele need H entries")
+    ok = np.empty(C, dtype=np.int32)
+    fA = np.empty((C, H), dtype=np.float64)
+    fB = np.empty((C, H), dtype=np.float64)
+    acc = np.empty(C, dtype=np.int32)
+    loss = np.empty(C, dtype=np.float64)
+    lib.hibag_ordered_step(
+        _ptr(bits), _ptr(freq), _ptr(allele), H, n_snp, _ptr(g_cand), C,
+        _ptr(geno_sel), L, _ptr(a1), _ptr(a2), _ptr(is_oob), _ptr(B), N,
+        n_alleles, float(total_n), float(rare_prob),
+        _ptr(ok), _ptr(fA), _ptr(fB), _ptr(acc), _ptr(loss), n_threads)
+    return ok.astype(bool), fA, fB, acc, loss

@@ -204,6 +204,16 @@ def em_estep_packed(fA, fB, packed, B, m, total_n):
         packed.shape[1], B, m, total_n)
 
 
+def mask_tier(S: int, H: int, mask_budget: int) -> str:
+    """The mask tier of `_make_estep` for S samples, H (padded) slots and
+    ``mask_budget`` bytes per classifier: "int8", "packed" or "remat"."""
+    if S * H * H <= min(MASK_MATERIALIZE_ELEMS, mask_budget):
+        return "int8"
+    if H % 8 == 0 and S * H * (H // 8) <= mask_budget:
+        return "packed"
+    return "remat"
+
+
 def _make_estep(valid, bits, allele, geno_sel, a1, a2, B, g_new, total_n,
                 mask_budget=None, engine="torch"):
     """The E-step closure (fA, fB) -> (dfA, dfB, dll) with the mask tier
@@ -252,10 +262,11 @@ def _make_estep(valid, bits, allele, geno_sel, a1, a2, B, g_new, total_n,
     match = lambda s, e: match_pairs(bits, valid, allele, geno_sel, a1, a2,
                                      s, e).to(mask_dt)
 
-    if S * Hp * Hp <= min(MASK_MATERIALIZE_ELEMS, mask_budget):
+    tier = mask_tier(S, Hp, mask_budget)
+    if tier == "int8":
         mask = match(0, S)
         step = lambda fA, fB: masked(fA, fB, mask, 0, S)
-    elif Hp % 8 == 0 and S * Hp * (Hp // 8) <= mask_budget:
+    elif tier == "packed":
         pk = match_pairs_packed(bits, valid, allele, geno_sel, a1, a2)
         step = lambda fA, fB: packed(fA, fB, pk)
     else:
@@ -396,7 +407,7 @@ def _evaluate_one(bits, allele, fA, fB, g_cand, geno_sel, a1, a2, is_oob, B,
         D = pair_distance(bits, geno_sel[s:e])
         Dm = torch.where(pair_ok[None], D, BIG)
         dmin = Dm.amin(dim=(1, 2), keepdim=True)
-        Pen = torch.exp(LOG_MIN_RARE_FREQ * (Dm - dmin))
+        Pen = torch.exp((LOG_MIN_RARE_FREQ * (Dm - dmin)).to(dt))
         Pen = torch.where(pair_ok[None], Pen, 0.0)
         T = torch.einsum("nij,ceBj->cneBi", Pen, Mf)
         Sb = torch.einsum("cbAi,cneBi->cnbeAB", Mf, T)

@@ -32,7 +32,8 @@ from ..constants import (FRACTION_HAPLO, GENO_MISSING, MAXNUM_SNP,
                          MIN_RARE_FREQ, PRUNE_RELTOL_LOGLIK,
                          STOP_RELTOL_LOGLIK_ADDSNP)
 from ..utils import threefry
-from .em import em_all_candidates, erase_rare, evaluate_candidates
+from .em import (F32_RELTOL, em_all_candidates, erase_rare,
+                 evaluate_candidates)
 
 #: on_overflow="retry"/"freeze" grow the slot capacity up to this ceiling
 RETRY_MAX_HCAP = 4096
@@ -111,6 +112,33 @@ def resolve_engine(engine, device) -> str:
     return engine
 
 
+def grow_step(bits, freq, allele, geno_sel, B, is_oob, g_cand, afreq, a1, a2,
+              n_alleles, rare_prob, total_n, mask_budget, engine, skip=None,
+              reltol=F32_RELTOL):
+    """The device work of one greedy step for K classifiers, without the
+    decisions (hibag_tpu parallel/mesh.py::_grow_step_single, vmapped by
+    batched_grow_step): EM for every candidate, `erase_rare`, then the
+    candidate evaluation. Shared by the fused `_step` and the host trainer
+    (models/train.py). bits [K, H, L]; freq [K, H] (0 = empty slot);
+    allele [K, H]; geno_sel [K, N, L]; B and is_oob [K, N]; g_cand
+    [K, C, N]; afreq [K, C]; a1/a2 [N]. ``engine`` "cuda" runs the CUDA
+    kernels, "torch" their plain versions; ``skip`` [K] marks classifiers
+    whose results the caller discards. Returns (fA, fB [K, C, H] erased,
+    acc [K, C], loss [K, C])."""
+    fA, fB, _, _ = em_all_candidates(
+        freq, freq > 0, bits, allele, geno_sel, a1, a2, B, g_cand, afreq,
+        total_n, reltol=reltol, mask_budget=mask_budget, engine=engine,
+        skip=skip)
+    fA, fB = erase_rare(fA, fB, rare_prob)
+    if engine == "cuda":
+        from ..ops.train_step import evaluate_candidates_kernel as evaluate
+    else:
+        evaluate = evaluate_candidates
+    acc, loss = evaluate(bits, allele, fA, fB, g_cand, geno_sel, a1, a2,
+                         is_oob, B, n_alleles)
+    return fA, fB, acc, loss
+
+
 def _step(st: GrowState, B, is_oob, geno_T, a1, a2, rare_prob, total_n,
           n_alleles, mtry, prune, freeze, budget, mask_budget, engine):
     """One growth step of every classifier (hibag_tpu's step_one, vmapped).
@@ -136,17 +164,10 @@ def _step(st: GrowState, B, is_oob, geno_T, a1, a2, rare_prob, total_n,
     cand_ok = cand_in_pool & (allele_cnt > 0) & (allele_cnt < valid_cnt)
     afreq = torch.where(cand_ok, allele_cnt / valid_cnt.clamp_min(1.0), 0.5)
 
-    fA, fB, _, _ = em_all_candidates(
-        st.freq, st.freq > 0, st.bits, st.allele, st.geno_sel, a1, a2, B,
-        g_cand, afreq, total_n, mask_budget=mask_budget, engine=engine,
+    fA, fB, acc_c, loss_c = grow_step(
+        st.bits, st.freq, st.allele, st.geno_sel, B, is_oob, g_cand, afreq,
+        a1, a2, n_alleles, rare_prob, total_n, mask_budget, engine,
         skip=was_done)
-    fA, fB = erase_rare(fA, fB, rare_prob)
-    if engine == "cuda":
-        from ..ops.train_step import evaluate_candidates_kernel as evaluate
-    else:
-        evaluate = evaluate_candidates
-    acc_c, loss_c = evaluate(st.bits, st.allele, fA, fB, g_cand, st.geno_sel,
-                             a1, a2, is_oob, B, n_alleles)
     min_i, max_acc, min_loss, kills = _decide(
         cand_ok, acc_c, loss_c, st.gmax_acc, st.gmin_loss, prune)
 

@@ -1,16 +1,18 @@
-"""Where a fused training step spends its time, on one CUDA card.
+"""Where a training step spends its time, on one CUDA card.
 
     python -m hibag_tpu_torch.utils.profile_train [out.json]
 
-Trains the two training cells of chip_smoke.py (mid-scale: 1,000 samples x
-266 SNPs, K=8, hcap=256; headline: 60 samples x 1,000 SNPs, K=25,
-hcap=128 on the packed EM tier) on seeded synthetic mosaic panels
-(synthetic.PANEL_RECOMBINATION) and reports per
-cell: the wall time of three plain calls after a warm-up, the device time
-(kernels and copies, each once) and idle share of one call under
-torch.profiler with its top device ops,
-and the time of each layer of the growth step (draw, pair matching, EM
-kernel, EM loop, erase, evaluation kernel, decide) under timers that
+Trains the training cells of chip_smoke.py on seeded synthetic mosaic
+panels (synthetic.PANEL_RECOMBINATION): fused mid-scale (1,000 samples x
+266 SNPs, K=8, hcap=256), fused headline (60 samples x 1,000 SNPs, K=25,
+hcap=128 on the packed EM tier) and host mid-scale (phase 8's
+train_parallel(mode="host"), K=8). It reports per cell: the wall time of
+three plain calls after a warm-up, the device time (kernels and copies,
+each once) and idle share of one call under torch.profiler with its top
+device ops, and the time of each layer of the growth step (draw, pair
+matching, EM kernel, EM loop, erase, evaluation kernel, decide; in host
+mode the device step, the decision scan and the list doubling, the rest of
+the host loop being the wall time less those) under timers that
 synchronise the card around each layer. The timers add a synchronisation
 per call, so their total is above the plain wall time.
 """
@@ -40,14 +42,20 @@ LAYERS = (
      "eval_kernel"),
     ("hibag_tpu_torch.models.train_fused", "_decide", "decide"),
     ("hibag_tpu_torch.models.train_fused", "_step", "step"),
+    ("hibag_tpu_torch.models.train", "grow_step", "host_device_step"),
+    ("hibag_tpu_torch.models.train", "_decide_host", "host_decide"),
+    ("hibag_tpu_torch.models.train", "_double", "host_double"),
 )
 
+FUSED = dict(mode="fused", on_overflow="freeze", max_steps=192)
 CELLS = {
     "mid": (dict(seed=0, n_samples=1000, n_snp=266, n_alleles=14),
-            dict(n_classifiers=8, batch=8, hcap=256, max_steps=192)),
+            dict(n_classifiers=8, batch=8, hcap=256, **FUSED)),
     "headline": (dict(seed=2, n_samples=60, n_snp=1000, n_alleles=14),
-                 dict(n_classifiers=25, batch=25, hcap=128, max_steps=192,
-                      mask_budget=256 * 1024)),
+                 dict(n_classifiers=25, batch=25, hcap=128,
+                      mask_budget=256 * 1024, **FUSED)),
+    "host_mid": (dict(seed=0, n_samples=1000, n_snp=266, n_alleles=14),
+                 dict(n_classifiers=8, batch=8, mtry=17, mode="host")),
 }
 
 
@@ -133,8 +141,8 @@ def main(argv) -> int:
     for cell, (panel_kw, train_kw) in CELLS.items():
         (table, geno), _ = synthetic_panel(
             **panel_kw, recombination=PANEL_RECOMBINATION)
-        kw = dict(seed=100, verbose=False, with_matching=False, mode="fused",
-                  on_overflow="freeze", device="cuda", **train_kw)
+        kw = dict(seed=100, verbose=False, with_matching=False,
+                  device="cuda", **train_kw)
         out[cell] = profile_cell(table, geno, kw)
         print(cell, json.dumps(out[cell]), flush=True)
     if len(argv) > 1:

@@ -287,10 +287,11 @@ def test_train_parallel_end_to_end(panel, tmp_path):
 def test_train_parallel_batches_and_unported_mode(panel, tmp_path):
     """The batch size does not change the classifiers (each id fixes its
     bootstrap and draws); auto_save + resume continues a partial run;
-    mode="host" is not ported yet."""
+    mode="host" trains too (tests/test_torch_train.py holds it against
+    hibag_tpu)."""
     (table, geno), _ = panel
     kw = dict(n_classifiers=3, seed=5, verbose=False, hcap=32, max_steps=40,
-              with_matching=False, device="cpu")
+              with_matching=False, device="cpu", mode="fused")
     one = hibag_tpu_torch.hlaParallelAttrBagging(table, geno, batch=3, **kw)
     path = str(tmp_path / "partial.npz")
     first = hibag_tpu_torch.train_parallel(
@@ -300,8 +301,10 @@ def test_train_parallel_batches_and_unported_mode(panel, tmp_path):
         table, geno, batch=1, auto_save=path, resume=True, **kw)
     for a, b in zip(one.classifiers, resumed.classifiers):
         _assert_same(a, b, freq_rtol=0)
-    with pytest.raises(NotImplementedError, match="1.6"):
-        hibag_tpu_torch.train_parallel(table, geno, mode="host", **kw)
+    host = hibag_tpu_torch.train_parallel(table, geno,
+                                          **dict(kw, mode="host"))
+    assert len(host.classifiers) == 3
+    assert all(c.n_snp >= 1 for c in host.classifiers)
     with pytest.raises(ValueError, match="engine"):
         hibag_tpu_torch.train_parallel(table, geno, engine="cuda", **kw)
 

@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on a card: the
 ensemble kernel (ops/ens_acc.py), the scoring kernel (ops/post_scores.py)
 and the training-step kernels (ops/train_step.py); prediction of a wide
-model and fused training through them.
+model, fused and host training and out_of_bag through them.
 
 Imports neither jax nor hibag_tpu, so that on a machine with a card and no
 jax it runs as
@@ -399,7 +399,7 @@ def test_fused_training_on_the_card(cuda):
     (table, geno), (ht, hg) = synthetic_panel(2, 200, 80, 8, n_held_out=60)
     kw = dict(n_classifiers=4, batch=4, seed=1, verbose=False, hcap=24,
               max_steps=60, on_overflow="freeze", with_matching=False,
-              device="cuda")
+              device="cuda", mode="fused")
     before = dict(ts.LAUNCHES)
     m1 = train_parallel(table, geno, **kw)
     m2 = train_parallel(table, geno, **kw)
@@ -419,3 +419,110 @@ def test_fused_training_on_the_card(cuda):
     for a, b in zip(m1.classifiers, retry.classifiers):
         assert np.array_equal(a.snp_index, b.snp_index)
         assert np.array_equal(a.hap_freq, b.hap_freq)
+
+
+@pytest.fixture(scope="module")
+def host_panel():
+    from hibag_tpu_torch.utils.synthetic import synthetic_panel
+    return synthetic_panel(2, 200, 80, 8, n_held_out=60)
+
+
+@pytest.mark.gpu
+def test_host_training_on_the_card(cuda, host_panel, monkeypatch):
+    """train_parallel(mode="host") through the kernels: two runs bitwise
+    equal, both step kernels launched, a taggable panel trained well, and
+    the first greedy step's EM step and evaluation equal to their plain
+    versions on the same CUDA tensors (chip_smoke phase 8's check)."""
+    from hibag_tpu_torch import predict, train_parallel
+    from hibag_tpu_torch.models import train as train_mod
+
+    (table, geno), (ht, hg) = host_panel
+    kw = dict(n_classifiers=3, batch=3, seed=4, verbose=False, mode="host",
+              with_matching=False, device="cuda")
+    step, first = train_mod.grow_step, []
+
+    def record(*a, **k):
+        if not first:
+            first.append((a, k))
+        return step(*a, **k)
+
+    before = dict(ts.LAUNCHES)
+    m1 = train_parallel(table, geno, **kw)
+    monkeypatch.setattr(train_mod, "grow_step", record)
+    m2 = train_parallel(table, geno, **kw)
+    assert ts.LAUNCHES["em_estep"] > before["em_estep"]
+    assert (ts.LAUNCHES["evaluate_candidates_kernel"]
+            > before["evaluate_candidates_kernel"])
+    assert chip_smoke._same_classifiers(m1, m2) == 3
+    assert np.mean([c.oob_accuracy for c in m1.classifiers]) > 0.9
+    assert predict(m1, hg, device="cuda").accuracy_vs(ht.allele1,
+                                                      ht.allele2) > 0.9
+    chip_smoke._check_host_step(first[0], "host step 1")
+
+
+@pytest.mark.gpu
+def test_out_of_bag_on_the_card(cuda, host_panel):
+    """out_of_bag predicts each classifier's out-of-bag samples through the
+    ensemble kernel, and agrees with the plain versions on the CPU."""
+    from hibag_tpu_torch import out_of_bag, train_parallel
+
+    (table, geno), _ = host_panel
+    model = train_parallel(table, geno, n_classifiers=2, seed=6,
+                           verbose=False, with_matching=False, mode="host",
+                           device="cuda")
+    before = ens_acc.LAUNCHES
+    got = out_of_bag(model, table, geno, device="cuda")
+    assert ens_acc.LAUNCHES >= before + 2
+    want = out_of_bag(model, table, geno, device="cpu")
+    assert got["overall"] == want["overall"]
+    np.testing.assert_array_equal(got["confusion"], want["confusion"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,A,limit", [(ts.EVAL_MAX_H + 64, 14, "MAX_H"),
+                                       (64, ts.EVAL_MAX_A + 2, "EVAL_MAX_A")])
+def test_host_step_beyond_the_kernels_raises(cuda, H, A, limit):
+    """The host trainer's device step above the kernels' haplotype or
+    allele limit raises the wrappers' ValueError to the caller; nothing
+    falls back to the plain versions."""
+    from hibag_tpu_torch.models.train_fused import grow_step
+
+    rng = np.random.default_rng(7)
+    K, C, S = 1, 2, 8
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+    bits = np.zeros((K, H, 128), np.float32)
+    bits[:, :, :12] = rng.integers(0, 2, (K, H, 12))
+    freq = np.full((K, H), 1.0 / H, np.float32)
+    allele = np.sort(rng.integers(0, A, (K, H))).astype(np.int32)
+    geno_sel = np.full((K, S, 128), 3, np.int8)
+    geno_sel[:, :, :12] = rng.integers(0, 3, (K, S, 12))
+    a12 = np.sort(rng.choice(allele[0], (2, S)), axis=0).astype(np.int32)
+    B = np.ones((K, S), np.float32)
+    B[:, 0] = 0
+    before = dict(ts.LAUNCHES)
+    with pytest.raises(ValueError, match=limit):
+        grow_step(t(bits), t(freq), t(allele), t(geno_sel), t(B), t(B == 0),
+                  t(rng.integers(0, 3, (K, C, S)).astype(np.int8)),
+                  t(np.full((K, C), 0.5, np.float32)), t(a12[0]), t(a12[1]),
+                  A, 1e-3, float(S), None, "cuda")
+    assert ts.LAUNCHES["evaluate_candidates_kernel"] == \
+        before["evaluate_candidates_kernel"]
+
+
+@pytest.mark.gpu
+def test_host_float64_on_the_card(cuda, host_panel):
+    """train(dtype=np.float64) on the card runs the plain versions in
+    float64 (no kernel launches) and gives the CPU's classifier."""
+    from hibag_tpu_torch import train
+
+    (table, geno), _ = host_panel
+    kw = dict(n_classifiers=1, seed=9, verbose=False, with_matching=False,
+              dtype=np.float64)
+    before = dict(ts.LAUNCHES)
+    got = train(table, geno, device="cuda", **kw).classifiers[0]
+    assert ts.LAUNCHES == before
+    want = train(table, geno, device="cpu", **kw).classifiers[0]
+    np.testing.assert_array_equal(got.snp_index, want.snp_index)
+    np.testing.assert_array_equal(got.hap_bits, want.hap_bits)
+    np.testing.assert_allclose(got.hap_freq, want.hap_freq, rtol=1e-10)
+    assert got.oob_accuracy == want.oob_accuracy

@@ -24,7 +24,10 @@ def test_import_leaves_jax_out():
     # a fresh interpreter: this process already imported jax (conftest.py)
     code = ("import sys, hibag_tpu_torch, hibag_tpu_torch.models.predict, "
             "hibag_tpu_torch.models.train, hibag_tpu_torch.models.convert, "
-            "hibag_tpu_torch.ops.train_step, hibag_tpu_torch.utils.synthetic; "
+            "hibag_tpu_torch.ops.train_step, hibag_tpu_torch.utils.synthetic, "
+            "hibag_tpu_torch.models.publish, hibag_tpu_torch.models.introspect, "
+            "hibag_tpu_torch.eval.compare, hibag_tpu_torch.data.misc, "
+            "hibag_tpu_torch.io.native; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'hibag_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")
