@@ -115,6 +115,24 @@ Phases, one line each (any failure raises and the exit code is non-zero):
                (one ensemble-kernel launch per classifier at least); and
                publish -> .npz -> load -> predict, whose held-out calls
                must equal the trained model's.
+  9. files   — the CLI (hibag_tpu_torch.cli) from files, on the card: phase
+               4's model written as .RData (save_rdata) and its cohort as
+               PLINK .bed/.bim/.fam (write_plink) and BGZF .vcf.gz
+               (write_geno_vcf); `impute --model M.RData --geno cohort.bed`
+               in this process, timed by layer (read, align, predict,
+               write), must launch the ensemble kernel, and its TSV must
+               hold predict()'s calls, prob and matching (%.6g); accuracy
+               >= 0.9; the .vcf.gz input gives the same TSV, and so does
+               `python -m hibag_tpu_torch impute` in a new process with no
+               --device. `impute --engine jnp` on the first 256 samples
+               launches the scoring kernel and not the ensemble kernel, with
+               the calls outside the tie margin. `train` (fused, 25
+               classifiers, hcap 128, mtry 32, the flank filter on) from
+               phase 6's panel as PLINK plus an HLA table launches the EM and
+               evaluation kernels, mean OOB >= 0.9; `impute` with the
+               trained .npz and `report` against the truth, whose accuracy
+               must be compare_alleles'. `convert` .RData -> .npz -> .RData
+               and `summary`: the model that comes back equals phase 4's.
 The line before the last is the kernels' JSON record (each kernel's
 launches on its phase's timed main-path run, with the counts set to 0 just
 before it; its time and its plain version's; its bound from this run's
@@ -224,6 +242,51 @@ def _cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+#: PLINK's 2-bit code of each genotype code (copies of the .bim's first
+#: allele 0, 1, 2, then missing): 11, 10, 00, 01
+_PLINK_BITS = np.array([3, 2, 0, 1], dtype=np.uint8)
+
+
+def write_plink(geno, prefix, chrom="6"):
+    """`geno` (SNPGenoData) as a SNP-major PLINK fileset prefix.bed/.bim/.fam
+    on chromosome `chrom` (a name, or one per SNP), each .bim line's first
+    allele the one its genotype codes count."""
+    bits = _PLINK_BITS[np.minimum(np.asarray(geno.genotype), 3)]
+    bits = np.pad(bits, ((0, 0), (0, -bits.shape[1] % 4)))
+    q = bits.reshape(bits.shape[0], -1, 4)
+    packed = q[..., 0] | q[..., 1] << 2 | q[..., 2] << 4 | q[..., 3] << 6
+    with open(prefix + ".bed", "wb") as f:
+        f.write(b"\x6c\x1b\x01" + packed.astype(np.uint8).tobytes())
+    chrom = np.broadcast_to(np.asarray(chrom, dtype=object), (geno.n_snp,))
+    with open(prefix + ".bim", "w") as f:
+        for c, s, p, a in zip(chrom, geno.snp_id, geno.snp_position,
+                              geno.snp_allele):
+            a1, a2 = str(a).split("/")
+            f.write(f"{c}\t{s}\t0\t{p}\t{a1}\t{a2}\n")
+    with open(prefix + ".fam", "w") as f:
+        f.writelines(f"{s}\t{s}\t0\t0\t0\t-9\n" for s in geno.sample_id)
+    return prefix + ".bed"
+
+
+def write_geno_vcf(geno, path, chrom="6"):
+    """`geno` as a VCF of GT calls (REF the allele its codes count), BGZF
+    through hibag_tpu_torch.io.bgzf.BgzfWriter when `path` ends in .gz."""
+    from hibag_tpu_torch.io.bgzf import BgzfWriter
+
+    gt = np.array(["1/1", "0/1", "0/0", "./."], dtype=object)
+    chrom = np.broadcast_to(np.asarray(chrom, dtype=object), (geno.n_snp,))
+    with (BgzfWriter(path, "wt") if path.endswith(".gz")
+          else open(path, "w")) as f:
+        f.write("##fileformat=VCFv4.2\n#CHROM\tPOS\tID\tREF\tALT\tQUAL\t"
+                "FILTER\tINFO\tFORMAT\t" + "\t".join(geno.sample_id) + "\n")
+        for i in range(geno.n_snp):
+            ref, alt = str(geno.snp_allele[i]).split("/")
+            f.write(f"{chrom[i]}\t{geno.snp_position[i]}\t{geno.snp_id[i]}\t"
+                    f"{ref}\t{alt}\t.\tPASS\t.\tGT\t"
+                    + "\t".join(gt[np.minimum(geno.genotype[i], 3)]) + "\n")
+    return path
 
 
 def phase_device():
@@ -1416,6 +1479,254 @@ def phase_wide(dev, card):
     return {"launches": launches, **timing["ensemble_scores"]}
 
 
+def _cli(argv):
+    """(exit code, standard output) of hibag_tpu_torch.cli.main(argv) in
+    this process."""
+    import contextlib
+    import io
+
+    from hibag_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"cli {argv[0]} exited {rc}")
+    return out.getvalue()
+
+
+def _tsv_rows(path):
+    rows = [ln.rstrip("\n").split("\t") for ln in open(path)]
+    return rows[1:]
+
+
+class _Split:
+    """Times the calls of module-level functions (a CLI's layers): each
+    wrapped name adds its seconds to `self.s[key]` until restore()."""
+
+    def __init__(self):
+        self.s = {}
+        self._saved = []
+
+    def wrap(self, mod, name, key):
+        fn = getattr(mod, name)
+        self.s.setdefault(key, 0.0)
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.s[key] += time.perf_counter() - t0
+
+        setattr(mod, name, timed)
+        self._saved.append((mod, name, fn))
+
+    def restore(self):
+        for mod, name, fn in reversed(self._saved):
+            setattr(mod, name, fn)
+        self._saved.clear()
+
+
+def _hibag_obj_equal(a, b, path="model"):
+    """Raises unless two hlaAttrBagObj dicts (AttrBagModel.to_hibag_obj)
+    are equal exactly, NaN equal to NaN."""
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or list(a) != list(b):
+            raise AssertionError(f"{path}: keys differ")
+        for k in a:
+            _hibag_obj_equal(a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"{path}: lengths differ")
+        for i, (x, y) in enumerate(zip(a, b)):
+            _hibag_obj_equal(x, y, f"{path}[{i}]")
+    else:
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
+                                      err_msg=path)
+
+
+def phase_files(card, model, geno, true1, true2, res, clear):
+    """Phase 9: the CLI from files on the card, through the entry points a
+    user calls. `model`, `geno` and `res` are phase 4's model, cohort and
+    predict() result; `clear` marks the first N_F64 samples outside the
+    1e-4 tie margin. Returns nothing (the kernels' line keeps phases 4-7's
+    counts)."""
+    from hibag_tpu_torch import cli, compare_alleles, predict, save_rdata
+    from hibag_tpu_torch.data import allele as allele_mod
+    from hibag_tpu_torch.data import geno as geno_mod
+    from hibag_tpu_torch.models import predict as predict_mod
+    from hibag_tpu_torch.ops import ens_acc, post_scores
+    from hibag_tpu_torch.ops import train_step as ts
+    from hibag_tpu_torch.utils.synthetic import (PANEL_RECOMBINATION,
+                                                 synthetic_panel)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        # (a) the inputs: the model as .RData, the cohort as PLINK and VCF
+        t0 = time.perf_counter()
+        mrd = os.path.join(d, "M.RData")
+        save_rdata(model, mrd)
+        bed = write_plink(geno, os.path.join(d, "cohort"))
+        vcf = write_geno_vcf(geno, os.path.join(d, "cohort.vcf.gz"))
+        t_inputs = time.perf_counter() - t0
+
+        # (b) impute from .RData + .bed, timed by layer
+        tsv = os.path.join(d, "calls.tsv")
+        split = _Split()
+        split.wrap(cli, "load_model", "read model")
+        split.wrap(cli, "load_geno", "read genotypes")
+        split.wrap(predict_mod, "predict", "predict")
+        split.wrap(geno_mod, "align_to_model", "align")
+        ens_acc.LAUNCHES = post_scores.LAUNCHES = 0
+        try:
+            t0 = time.perf_counter()
+            _cli(["impute", "--model", mrd, "--geno", bed, "--out", tsv])
+            total = time.perf_counter() - t0
+        finally:
+            split.restore()
+        launches = ens_acc.LAUNCHES
+        if launches < 1:
+            raise AssertionError("impute did not launch the ensemble kernel")
+        s = split.s
+        t_write = total - s["read model"] - s["read genotypes"] - s["predict"]
+        rows = _tsv_rows(tsv)
+        want = [[str(x) for x in res.sample_id], [str(x) for x in res.allele1],
+                [str(x) for x in res.allele2],
+                [f"{p:.6g}" for p in res.prob],
+                [f"{m:.6g}" for m in res.matching]]
+        got = [list(c) for c in zip(*rows)]
+        if got != want:
+            raise AssertionError(
+                "impute's TSV differs from predict(device='cuda'): "
+                f"{sum(a != b for a, b in zip(got[1], want[1]))} allele1 "
+                "calls differ")
+        acc = res.accuracy_vs(true1, true2)
+        if acc < 0.9:
+            raise AssertionError(f"accuracy {acc:.4f} < 0.9")
+        tsv_vcf = os.path.join(d, "calls_vcf.tsv")
+        split.wrap(cli, "load_geno", "read .vcf.gz")
+        try:
+            _cli(["impute", "--model", mrd, "--geno", vcf, "--out", tsv_vcf])
+        finally:
+            split.restore()
+        if open(tsv_vcf).read() != open(tsv).read():
+            raise AssertionError("the .vcf.gz input gives other calls")
+
+        # (c) as a user runs it: a new process, no --device (the card)
+        tsv_sub = os.path.join(d, "calls_sub.tsv")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "hibag_tpu_torch", "impute", "--model",
+             mrd, "--geno", bed, "--out", tsv_sub], cwd=root,
+            capture_output=True, text=True, timeout=300)
+        t_sub = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError("python -m hibag_tpu_torch impute failed: "
+                                 + proc.stderr[-2000:])
+        if open(tsv_sub).read() != open(tsv).read():
+            raise AssertionError("the subprocess's TSV differs")
+
+        # (d) the scan engine on the first N_F64 samples
+        bed256 = write_plink(geno.subset(samp_mask=np.arange(N_F64)),
+                             os.path.join(d, "first"))
+        tsv_jnp = os.path.join(d, "calls_jnp.tsv")
+        ens_acc.LAUNCHES = post_scores.LAUNCHES = 0
+        _cli(["impute", "--model", mrd, "--geno", bed256, "--out", tsv_jnp,
+              "--engine", "jnp"])
+        scan = (post_scores.LAUNCHES, ens_acc.LAUNCHES)
+        if scan[0] < 1 or scan[1] != 0:
+            raise AssertionError(f"--engine jnp launched the scoring kernel "
+                                 f"{scan[0]} and the ensemble kernel "
+                                 f"{scan[1]} times")
+        jrows = _tsv_rows(tsv_jnp)
+        same = np.array([j[1:3] == r[1:3] for j, r in zip(jrows, rows)])
+        if not np.all(same[clear]):
+            raise AssertionError(f"{int((~same[clear]).sum())} --engine jnp "
+                                 "calls differ outside the tie margin")
+
+        # (e) train from PLINK + an HLA table (phase 6's panel), then impute
+        # with the trained model and report against the truth
+        (table, pgeno), _ = synthetic_panel(SEED + 2, 60, 1000, 14,
+                                            recombination=PANEL_RECOMBINATION)
+        pbed = write_plink(pgeno, os.path.join(d, "panel"))
+        hla = os.path.join(d, "panel_hla.tsv")
+        with open(hla, "w") as f:
+            f.write("sample.id\tA.1\tA.2\n")
+            f.writelines(f"{s_}\t{a}\t{b}\n" for s_, a, b in zip(
+                table.sample_id, table.allele1, table.allele2))
+        n_flank = len(allele_mod.flanking_snps(
+            pgeno.snp_id, pgeno.snp_position, "A", 500_000, "hg19"))
+        trained = os.path.join(d, "trained.npz")
+        for k in ts.LAUNCHES:
+            ts.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        _cli(["train", "--hla", hla, "--geno", pbed, "--locus", "A", "--out",
+              trained, "--n-classifiers", "25", "--mtry", "32", "--hcap",
+              "128", "--mode", "fused", "--on-overflow", "freeze", "--quiet"])
+        t_train = time.perf_counter() - t0
+        tl = dict(ts.LAUNCHES)
+        if tl["em_estep"] + tl["em_estep_packed"] < 1:
+            raise AssertionError("train did not launch an EM kernel")
+        if tl["evaluate_candidates_kernel"] < 1:
+            raise AssertionError("train did not launch the evaluation kernel")
+        tmodel = cli.load_model(trained)
+        oob = float(np.mean([c.oob_accuracy for c in tmodel.classifiers]))
+        if oob < 0.9:
+            raise AssertionError(f"trained mean OOB {oob:.4f} < 0.9")
+        ptsv = os.path.join(d, "panel_calls.tsv")
+        ens_acc.LAUNCHES = 0
+        _cli(["impute", "--model", trained, "--geno", pbed, "--out", ptsv])
+        if ens_acc.LAUNCHES < 1:
+            raise AssertionError("impute of the trained model did not launch "
+                                 "the ensemble kernel")
+        rep = _cli(["report", "--pred", ptsv, "--truth", hla, "--locus",
+                    "A"]).splitlines()[0]
+        o = compare_alleles(table, predict(tmodel, pgeno,
+                                           device="cuda")).overall
+        want_rep = (f"Overall accuracy: {o['acc.haplo']:.1%} (per allele), "
+                    f"{o['acc.ind']:.1%} (per individual)")
+        if rep != want_rep:
+            raise AssertionError(f"report says {rep!r}, compare_alleles "
+                                 f"{want_rep!r}")
+
+        # (f) convert .RData -> .npz -> .RData and summarize: the model
+        # that comes back is the model that went in
+        mnpz, m2 = os.path.join(d, "M.npz"), os.path.join(d, "M2.RData")
+        _cli(["convert", mrd, mnpz])
+        _cli(["convert", mnpz, m2])
+        summ = json.loads(_cli(["summary", m2]))
+        if summ["num.classifier"] != model.n_classifiers:
+            raise AssertionError(f"summary counts {summ['num.classifier']} "
+                                 "classifiers")
+        _hibag_obj_equal(cli.load_model(m2).to_hibag_obj(),
+                         model.to_hibag_obj())
+
+    print(f"[files] impute .RData + .bed -> .tsv, C={model.n_classifiers} "
+          f"P={model.n_snp} A={model.n_alleles} N={geno.n_samp}: "
+          f"{geno.n_samp / total:.1f} samples/s end to end ({total * 1e3:.2f}"
+          f" ms: read model {s['read model'] * 1e3:.2f}, read .bed "
+          f"{s['read genotypes'] * 1e3:.2f}, align "
+          f"{s['align'] * 1e3:.2f}, predict "
+          f"{(s['predict'] - s['align']) * 1e3:.2f}, write "
+          f"{t_write * 1e3:.2f}); launches ens_acc {launches}; calls equal "
+          f"to predict() {len(rows)}/{geno.n_samp}, accuracy {acc:.4f}; "
+          f".vcf.gz input (read {s['read .vcf.gz'] * 1e3:.2f} ms) same TSV; "
+          f"python -m hibag_tpu_torch impute {t_sub:.2f} s wall, same TSV; "
+          f"--engine jnp on {N_F64}: post_scores launches {scan[0]}, ens_acc "
+          f"{scan[1]}, calls equal on {int(clear.sum())}/{N_F64} clear "
+          f"samples; train N=60 P=1000 (flank keeps {n_flank}) A=14 K=25 "
+          f"hcap=128 mtry=32: {25 / t_train:.4f} classifiers/s "
+          f"({t_train:.3f} s, first call), launches EM int8 {tl['em_estep']} "
+          f"packed {tl['em_estep_packed']} eval "
+          f"{tl['evaluate_candidates_kernel']}, mean OOB {oob:.4f}; report "
+          f"{rep[len('Overall accuracy: '):]} = compare_alleles; convert "
+          f".RData -> .npz -> .RData and summary: model equal; inputs "
+          f"written in {t_inputs:.2f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s | {card}")
+
+
 def main():
     dev, card = phase_device()
     phase_build()
@@ -1493,6 +1804,7 @@ def main():
     train_launches["em_estep_packed"] = phase_packed(card)
     wide = phase_wide(dev, card)
     phase_host(card, fused_rate)
+    phase_files(card, model, geno, true1, true2, res, clear)
 
     kernels = [{"name": "ens_acc", "route": "cuda",
                 "source": "hibag_tpu_torch/csrc/ens_acc.cu",

@@ -123,6 +123,78 @@ class SNPGenoData:
         )
 
 
+def switch_strand(target: "SNPGenoData", template, match_type: str = "Position",
+                  same_strand: bool = False) -> "SNPGenoData":
+    """Re-code `target` onto `template`'s allele order/strand, keeping only
+    matched usable SNPs in template order (hlaGenoSwitchStrand,
+    R/DataUtilities.R:415-505). `template` may be SNPGenoData or a model."""
+    tmpl_allele = np.asarray(template.snp_allele, dtype=object)
+    tmpl_pos = np.asarray(template.snp_position, dtype=np.int64)
+    tmpl_id = np.asarray(template.snp_id, dtype=object)
+    if isinstance(template, SNPGenoData):
+        tmpl_key = template.snp_key(match_type)
+        tmpl_freq = template.allele_freq()
+    else:
+        from .geno import _model_keys
+        tmpl_key = _model_keys(template, match_type)
+        tmpl_freq = template.snp_allele_freq
+
+    tgt_key = target.snp_key(match_type)
+    tgt_pos = {}
+    for j, k in enumerate(tgt_key):
+        tgt_pos.setdefault(k, j)   # first occurrence wins (match() semantics)
+    tfreq = target.allele_freq()
+
+    rows, ids, poss, alls = [], [], [], []
+    for i, k in enumerate(tmpl_key):
+        j = tgt_pos.get(k)
+        if j is None:
+            continue
+        flip, _ = allele_switch(
+            tmpl_allele[i], target.snp_allele[j],
+            None if tmpl_freq is None else float(tmpl_freq[i]),
+            float(tfreq[j]), same_strand=same_strand)
+        g = target.genotype[j]
+        if flip:
+            g = np.where(g <= 2, 2 - g, GENO_MISSING).astype(np.uint8)
+        rows.append(g)
+        ids.append(tmpl_id[i])
+        poss.append(tmpl_pos[i])
+        alls.append(tmpl_allele[i])
+    if not rows:
+        raise ValueError("no matching SNPs between target and template")
+    return SNPGenoData(
+        genotype=np.stack(rows),
+        sample_id=target.sample_id,
+        snp_id=np.asarray(ids, dtype=object),
+        snp_position=np.asarray(poss, dtype=np.int64),
+        snp_allele=np.asarray(alls, dtype=object),
+        assembly=target.assembly)
+
+
+def combine_geno(g1: "SNPGenoData", g2: "SNPGenoData",
+                 match_type: str = "Position",
+                 same_strand: bool = False) -> "SNPGenoData":
+    """Combine two genotype sets over their SNP intersection, re-coding the
+    second onto the first's strand/allele order (hlaGenoCombine,
+    R/DataUtilities.R:531-568)."""
+    s2 = switch_strand(g2, g1, match_type=match_type, same_strand=same_strand)
+    k1 = g1.snp_key(match_type)
+    k2 = s2.snp_key(match_type)
+    common = {k: i for i, k in enumerate(k2)}
+    sel1 = [i for i, k in enumerate(k1) if k in common]
+    sub1 = g1.subset(snp_mask=np.asarray(sel1, dtype=int))
+    if set(g1.sample_id) & set(g2.sample_id):
+        raise ValueError("sample sets overlap")
+    order2 = [common[k] for k in g1.snp_key(match_type)[np.asarray(sel1, dtype=int)]]
+    return SNPGenoData(
+        genotype=np.concatenate(
+            [sub1.genotype, s2.genotype[np.asarray(order2, dtype=int)]],
+            axis=1),
+        sample_id=np.concatenate([g1.sample_id, s2.sample_id]),
+        snp_id=sub1.snp_id, snp_position=sub1.snp_position,
+        snp_allele=sub1.snp_allele, assembly=g1.assembly)
+
 
 def allele_switch(model_allele: str, target_allele: str,
                   model_freq: Optional[float] = None,

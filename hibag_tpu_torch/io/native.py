@@ -29,10 +29,10 @@ def _find_lib() -> Optional[str]:
     # fresh checkout: build the library once if the source tree and a
     # compiler are available (on failure the NumPy fallbacks stay in use).
     # Concurrency-safe: compile to a per-process temp name and os.rename
-    # atomically, so two processes racing (e.g. jax.distributed workers)
-    # never dlopen a half-written .so.  A failed build leaves a marker file
-    # so later processes skip the (up to 180 s) rebuild attempt until the
-    # source changes.
+    # atomically, so two processes racing (e.g. the workers of a distributed
+    # run) never dlopen a half-written .so.  A failed build leaves a marker
+    # file so later processes skip the (up to 180 s) rebuild attempt until
+    # the source changes.
     src_dir = os.path.join(here, "native")
     src = os.path.join(src_dir, "hibag_native.cpp")
     if os.path.exists(src):
@@ -87,10 +87,20 @@ def get_lib() -> Optional[ctypes.CDLL]:
         return None
     try:
         lib = ctypes.CDLL(path)
+        lib.hibag_bed_decode.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int]
         lib.hibag_align_codes.argtypes = [
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
             ctypes.c_void_p, ctypes.c_int]
+        lib.hibag_snp_stats.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+        lib.hibag_vcf_gt_codes.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int32,
+            ctypes.c_void_p, ctypes.c_int64]
+        lib.hibag_vcf_gt_codes.restype = ctypes.c_int64
         if hasattr(lib, "hibag_ordered_step"):
             lib.hibag_ordered_step.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -110,6 +120,33 @@ def get_lib() -> Optional[ctypes.CDLL]:
 
 def _ptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def bed_decode(raw: np.ndarray, n_snp: int, n_samp: int,
+               keep_idx: np.ndarray, n_threads: int = 0) -> np.ndarray:
+    """Decode SNP-major PLINK BED bytes → int8 codes [n_keep, n_samp]."""
+    lib = get_lib()
+    keep_idx = np.ascontiguousarray(keep_idx, dtype=np.int64)
+    # validate before the (unchecked) C++ kernel: a truncated .bed or a
+    # .bim/.fam mismatch must raise here, not read out of bounds
+    stride = (n_samp + 3) // 4
+    if len(raw) < stride * n_snp:
+        raise ValueError(
+            f"BED payload too short: {len(raw)} bytes < {stride * n_snp} "
+            f"({n_snp} SNPs x {n_samp} samples) — truncated .bed or "
+            "mismatched .bim/.fam?")
+    if len(keep_idx) and (keep_idx.min() < 0 or keep_idx.max() >= n_snp):
+        raise ValueError("keep_idx out of range for n_snp")
+    if lib is not None:
+        raw = np.ascontiguousarray(raw, dtype=np.uint8)
+        out = np.empty((len(keep_idx), n_samp), dtype=np.int8)
+        lib.hibag_bed_decode(_ptr(raw), n_snp, n_samp, _ptr(keep_idx),
+                             len(keep_idx), _ptr(out), n_threads)
+        return out
+    # NumPy fallback (same LUT approach)
+    from .bed import _LUT
+    rows = raw[:stride * n_snp].reshape(n_snp, stride)[keep_idx]
+    return _LUT[rows].reshape(len(keep_idx), -1)[:, :n_samp].astype(np.int8)
 
 
 def align_codes(geno: np.ndarray, src_idx: np.ndarray, flip: np.ndarray,
@@ -132,6 +169,26 @@ def align_codes(geno: np.ndarray, src_idx: np.ndarray, flip: np.ndarray,
     flipped = np.where((g <= 2) & flip[:, None].astype(bool), 2 - g, g)
     flipped[src_idx < 0] = 3
     return np.ascontiguousarray(flipped.T)
+
+
+def snp_stats(geno: np.ndarray, n_threads: int = 0):
+    """(allele_freq [P], missing_rate [P]) over int8 codes [P, N]."""
+    lib = get_lib()
+    P, N = geno.shape
+    if lib is not None:
+        geno = np.ascontiguousarray(geno, dtype=np.int8)
+        freq = np.empty(P)
+        miss = np.empty(P)
+        lib.hibag_snp_stats(_ptr(geno), P, N, _ptr(freq), _ptr(miss),
+                            n_threads)
+        return freq, miss
+    g = geno.astype(np.int64)
+    valid = g <= 2
+    cnt = np.where(valid, g, 0).sum(1)
+    nv = valid.sum(1)
+    with np.errstate(invalid="ignore"):
+        freq = np.where(nv > 0, cnt / (2.0 * nv), 0.0)
+    return freq, 1.0 - nv / N
 
 
 def ordered_step(bits: np.ndarray, freq: np.ndarray, allele: np.ndarray,
@@ -186,3 +243,18 @@ def ordered_step(bits: np.ndarray, freq: np.ndarray, allele: np.ndarray,
         n_alleles, float(total_n), float(rare_prob),
         _ptr(ok), _ptr(fA), _ptr(fB), _ptr(acc), _ptr(loss), n_threads)
     return ok.astype(bool), fA, fB, acc, loss
+
+
+def vcf_gt_codes(cells: bytes, gt_index: int, n_samples: int):
+    """Native GT-field parse of one VCF data line's sample region into
+    REF-allele-count codes (3 = missing); None when the native lib is
+    absent (callers fall back to the Python loop)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    out = np.empty(n_samples, dtype=np.uint8)
+    n = lib.hibag_vcf_gt_codes(cells, len(cells), gt_index,
+                               _ptr(out), n_samples)
+    if n != n_samples:
+        return None
+    return out

@@ -13,13 +13,17 @@ Two engines, chosen openly by the model's shape:
   * the ensemble engine: all classifiers of a sample block in one call of
     ops.ens_acc.ensemble_accumulate. engine="auto" (the default) takes it
     for every model that kernel takes (ens_acc.fits: at most 1,024
-    haplotypes per classifier and 128 alleles);
+    haplotypes per classifier and 128 alleles), and engine="pallas" always
+    (it raises for a model the kernel does not take);
   * the scan engine (_predict_block): chunks of SCAN_CCHUNK classifiers,
     each chunk one call of ops.post_scores.ensemble_scores, then
-    per-classifier weights, majority votes and matching in torch ops. engine="auto" takes it for the wider models, as
-    hibag_tpu.predict does (hibag_tpu/models/predict.py:505-519), and
-    engine="scan" always. Its kernel takes 4,096 haplotypes per classifier
-    and 1,024 alleles.
+    per-classifier weights, majority votes and matching in torch ops.
+    engine="auto" takes it for the wider models, as hibag_tpu.predict does
+    (hibag_tpu/models/predict.py:505-519), and engine="jnp" (or its alias
+    "scan") always. Its kernel takes 4,096 haplotypes per classifier and
+    1,024 alleles.
+The engine names are hibag_tpu's: "pallas" is its ensemble kernel, "jnp"
+its per-classifier scan.
 Each wrapper launches its CUDA kernel on a card and runs its plain PyTorch
 version on the CPU. dtype=np.float64 is the reference-precision scan engine,
 ops.scoring.posterior_scores in float64 on any device, as hibag_tpu's float64
@@ -309,11 +313,13 @@ def predict(model: AttrBagModel, data, vote: str = "prob",
 
     type: reference-style output selector ("response+dosage" [default],
     "response", "prob", "response+prob") overriding with_dosage/with_prob.
-    engine: "auto" or "scan". "auto" runs the ensemble kernel
-    (ops/ens_acc.py) for every model it takes (ens_acc.fits: at most
-    ens_acc.MAX_H haplotypes per classifier and ens_acc.MAX_A alleles) and
-    the scan engine for the rest, as hibag_tpu.predict sends a model beyond
-    its ensemble kernel's limit to its scan engine; "scan" always takes the
+    engine: "auto", "pallas" or "jnp" (hibag_tpu's names; "scan" is an
+    alias of "jnp"). "auto" runs the ensemble kernel (ops/ens_acc.py) for
+    every model it takes (ens_acc.fits: at most ens_acc.MAX_H haplotypes
+    per classifier and ens_acc.MAX_A alleles) and the scan engine for the
+    rest, as hibag_tpu.predict sends a model beyond its ensemble kernel's
+    limit to its scan engine; "pallas" always takes the ensemble kernel and
+    raises ValueError for a model it does not take; "jnp" always takes the
     scan engine. The scan engine scores SCAN_CCHUNK classifiers per launch
     of the scoring kernel (ops/post_scores.py: at
     most post_scores.MAX_H haplotypes and post_scores.MAX_A alleles; beyond
@@ -321,8 +327,8 @@ def predict(model: AttrBagModel, data, vote: str = "prob",
     counts its kernel's launches; on the CPU both run their plain versions.
     block: samples per block (default: from the device's memory).
     dtype: np.float64 selects the reference-precision scan engine, plain
-    PyTorch in float64 on any device (hibag_tpu's float64 path has no
-    kernel either).
+    PyTorch in float64 on any device, whatever `engine` says (hibag_tpu's
+    float64 path forces "jnp" and has no kernel either).
     mesh / devices: multi-device prediction is not ported yet and raises
     NotImplementedError.
     """
@@ -337,7 +343,7 @@ def predict(model: AttrBagModel, data, vote: str = "prob",
         with_prob = type in ("prob", "response+prob")
     if vote not in ("prob", "majority"):
         raise ValueError(f"unknown vote {vote!r}")
-    if engine not in ("auto", "scan"):
+    if engine not in ("auto", "pallas", "jnp", "scan"):
         raise ValueError(f"unknown engine {engine!r}")
     f64 = np.dtype(dtype) == np.float64
     dev = resolve_device(device)
@@ -370,7 +376,13 @@ def predict(model: AttrBagModel, data, vote: str = "prob",
     else:
         hap = _prepare_ensemble(packed, dev)
         Hm = hap.n_slots
-        use_ens = engine == "auto" and ens_acc.fits(Hm, A)
+        use_ens = engine in ("auto", "pallas") and ens_acc.fits(Hm, A)
+        if engine == "pallas" and not use_ens:
+            raise ValueError(
+                f"engine='pallas': the ensemble kernel takes at most "
+                f"{ens_acc.MAX_H} haplotypes per classifier and "
+                f"{ens_acc.MAX_A} alleles; this model has {Hm} and {A} "
+                "(engine='auto' or 'jnp' runs the scan engine)")
         if not use_ens:
             post_scores.check_limits(Hm, A)
     si = torch.from_numpy(packed.snp_index).to(dev)

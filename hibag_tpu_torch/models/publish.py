@@ -5,8 +5,8 @@ Equivalents of hlaPublish (reference R/DataUtilities.R:1948-2021),
 hlaOutOfBag (R/HIBAG.R:1275-1386), hlaPredMerge (R/HIBAG.R:825-1023) and
 hlaModelFiles (R/DataUtilities.R:2028). `out_of_bag` predicts through the
 port's `predict` on a device (the ensemble kernel on the card, one
-classifier per call). hibag_tpu's ``model_to_robj`` and ``save_rdata``
-wait for the port's io/rdata.py.
+classifier per call). `model_to_robj` and `save_rdata` write R's
+hlaAttrBagObj through the port's io/rdata.py.
 """
 
 from __future__ import annotations
@@ -70,6 +70,67 @@ def model_files(patterns: Sequence[str], ignore_missing: bool = True) -> AttrBag
     for f in files[1:]:
         model = model.combine(AttrBagModel.load(f))
     return model
+
+
+def model_to_robj(model: AttrBagModel):
+    """Build the hlaAttrBagObj RObj tree (the exact schema hlaModelToObj
+    emits, reference R/HIBAG.R:1041-1062 — consumed by R's
+    hlaModelFromObj)."""
+    from ..io.rdata import INTSXP, RObj, STRSXP, VECSXP, py_to_r, r_dataframe
+
+    o = model.to_hibag_obj()
+    cls_objs = []
+    for c in o["classifiers"]:
+        fields = {
+            "samp.num": (None if c["samp.num"] is None else
+                         RObj(INTSXP, np.asarray(c["samp.num"], np.int64))),
+            "haplos": r_dataframe({
+                "freq": np.asarray(c["haplos"]["freq"], np.float64),
+                "hla": c["haplos"]["hla"],
+                "haplo": c["haplos"]["haplo"],
+            }),
+            "snpidx": RObj(INTSXP, np.asarray(c["snpidx"], np.int64)),
+            "outofbag.acc": float(c["outofbag.acc"]),
+        }
+        cls_objs.append(py_to_r(fields))
+    top = {
+        "n.samp": int(o["n.samp"]), "n.snp": int(o["n.snp"]),
+        "sample.id": (None if o["sample.id"] is None else o["sample.id"]),
+        "snp.id": o["snp.id"],
+        "snp.position": RObj(INTSXP, np.asarray(o["snp.position"],
+                                                np.int64)),
+        "snp.allele": o["snp.allele"],
+        "snp.allele.freq": o["snp.allele.freq"],
+        "hla.locus": o["hla.locus"],
+        "hla.allele": o["hla.allele"],
+        "hla.freq": o["hla.freq"],
+        "assembly": o["assembly"],
+        "classifiers": RObj(VECSXP, cls_objs),
+        "matching": (None if model.matching is None
+                     else np.asarray(model.matching, np.float64)),
+        "appendix": (model.appendix or None),
+    }
+    robj = py_to_r(top)
+    robj.attrs["class"] = RObj(STRSXP, ["hlaAttrBagObj"])
+    return robj
+
+
+def save_rdata(models, path: str, name: Optional[str] = None) -> None:
+    """Export to a .RData file loadable by R HIBAG.
+
+    A single AttrBagModel saves as one hlaAttrBagObj (default object name
+    "mobj" — load() then hlaModelFromObj(mobj) in R); a {locus: model}
+    dict saves as a named list like the package's bundled ModelList.RData
+    (default name "modellist"). Mirrors hlaModelToObj + save()
+    (reference R/HIBAG.R:1041, R/DataUtilities.R:2083-2096)."""
+    from ..io.rdata import write_rdata
+
+    if isinstance(models, AttrBagModel):
+        write_rdata(path, {name or "mobj": model_to_robj(models)})
+    else:
+        ml = {str(k): model_to_robj(v) for k, v in models.items()}
+        from ..io.rdata import py_to_r
+        write_rdata(path, {name or "modellist": py_to_r(ml)})
 
 
 def out_of_bag(model: AttrBagModel, hla_table, geno_data,

@@ -526,3 +526,58 @@ def test_host_float64_on_the_card(cuda, host_panel):
     np.testing.assert_array_equal(got.hap_bits, want.hap_bits)
     np.testing.assert_allclose(got.hap_freq, want.hap_freq, rtol=1e-10)
     assert got.oob_accuracy == want.oob_accuracy
+
+
+@pytest.mark.gpu
+def test_predict_engine_pallas_on_the_card(cuda):
+    """engine="pallas" launches the ensemble kernel and "jnp" the scoring
+    kernel, with the same calls; "pallas" raises for a model past
+    ens_acc.fits (more than MAX_A alleles), before any launch."""
+    from hibag_tpu_torch import predict
+    from hibag_tpu_torch.utils.synthetic import (synthetic_cohort,
+                                                 synthetic_model)
+
+    model, pool = synthetic_model(3, n_classifiers=8, n_snp=300,
+                                  n_alleles=20)
+    geno, _, _ = synthetic_cohort(model, pool, 64, 4)
+    before = (ens_acc.LAUNCHES, post_scores.LAUNCHES)
+    a = predict(model, geno, engine="pallas", device="cuda")
+    assert ens_acc.LAUNCHES > before[0]
+    assert post_scores.LAUNCHES == before[1]
+    mid = (ens_acc.LAUNCHES, post_scores.LAUNCHES)
+    b = predict(model, geno, engine="jnp", device="cuda")
+    assert post_scores.LAUNCHES > mid[1] and ens_acc.LAUNCHES == mid[0]
+    assert list(a.allele1) == list(b.allele1)
+    np.testing.assert_allclose(a.prob, b.prob, rtol=3e-4)
+
+    wide, wpool = synthetic_model(5, n_classifiers=2, n_snp=120,
+                                  n_alleles=ens_acc.MAX_A + 2,
+                                  snp_range=(10, 20), hap_range=(140, 160))
+    wgeno, _, _ = synthetic_cohort(wide, wpool, 8, 6)
+    before = (ens_acc.LAUNCHES, post_scores.LAUNCHES)
+    with pytest.raises(ValueError, match="engine='pallas'"):
+        predict(wide, wgeno, engine="pallas", device="cuda")
+    assert (ens_acc.LAUNCHES, post_scores.LAUNCHES) == before
+
+
+@pytest.mark.gpu
+def test_cli_impute_on_the_card(cuda, tmp_path):
+    """`impute` with the default --device cuda launches the ensemble kernel
+    and writes the calls of predict(device="cuda")."""
+    from hibag_tpu_torch import cli, predict
+    from hibag_tpu_torch.utils.synthetic import (synthetic_cohort,
+                                                 synthetic_model)
+
+    model, pool = synthetic_model(7, n_classifiers=8, n_snp=300,
+                                  n_alleles=20)
+    geno, _, _ = synthetic_cohort(model, pool, 40, 8)
+    model.save(str(tmp_path / "m.npz"))
+    bed = chip_smoke.write_plink(geno, str(tmp_path / "c"))
+    before = ens_acc.LAUNCHES
+    assert cli.main(["impute", "--model", str(tmp_path / "m.npz"), "--geno",
+                     bed, "--out", str(tmp_path / "o.tsv")]) == 0
+    assert ens_acc.LAUNCHES > before
+    rows = [ln.split("\t") for ln in open(tmp_path / "o.tsv")][1:]
+    want = predict(model, geno, device="cuda")
+    assert [r[1] for r in rows] == list(want.allele1)
+    assert [r[2] for r in rows] == list(want.allele2)

@@ -21,13 +21,19 @@ def _no_env_overrides(monkeypatch):
 
 
 def test_import_leaves_jax_out():
-    # a fresh interpreter: this process already imported jax (conftest.py)
-    code = ("import sys, hibag_tpu_torch, hibag_tpu_torch.models.predict, "
-            "hibag_tpu_torch.models.train, hibag_tpu_torch.models.convert, "
-            "hibag_tpu_torch.ops.train_step, hibag_tpu_torch.utils.synthetic, "
-            "hibag_tpu_torch.models.publish, hibag_tpu_torch.models.introspect, "
-            "hibag_tpu_torch.eval.compare, hibag_tpu_torch.data.misc, "
-            "hibag_tpu_torch.io.native; "
+    """A fresh interpreter (this process already imported jax in
+    conftest.py) imports every module of the port: the package, its CLI,
+    io, eval, models, ops, data and utils modules (all but __main__, which
+    runs the CLI), and loads no jax, jaxlib or hibag_tpu."""
+    mods = sorted(
+        "hibag_tpu_torch." + ".".join(p.relative_to(PKG).with_suffix("").parts)
+        for p in PKG.rglob("*.py")
+        if p.name not in ("__init__.py", "__main__.py"))
+    for m in ("hibag_tpu_torch.cli", "hibag_tpu_torch.io.rdata",
+              "hibag_tpu_torch.io.gds", "hibag_tpu_torch.eval.assoc",
+              "hibag_tpu_torch.eval.plots"):
+        assert m in mods
+    code = ("import sys, hibag_tpu_torch, " + ", ".join(mods) + "; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'hibag_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")
