@@ -133,6 +133,31 @@ Phases, one line each (any failure raises and the exit code is non-zero):
                trained .npz and `report` against the truth, whose accuracy
                must be compare_alleles'. `convert` .RData -> .npz -> .RData
                and `summary`: the model that comes back equals phase 4's.
+  10. limits — the kernels past their old limits of 4,096 slots and 128
+               alleles, each against its plain version on seeded tie-free
+               inputs (LIMIT_EM, LIMIT_EVAL, LIMIT_SCORES): both EM kernels
+               at H 4,160 and 10,016 and C 1, 17 and 64; the evaluation at
+               A 130 and 320 and H 64 to 10,016; both at the wide
+               training's own shapes (K=2, C=17, H=832, 1,000 samples, the
+               evaluation at A=160); scoring at H 4,160 and
+               10,016 and A 14 and 160. Counts and dmin exact, other values
+               at rtol 1e-4 (scoring: 2e-4), two runs bitwise equal, every
+               other plan or route that fits (device-memory plans, slot
+               records in device memory, one scoring block a classifier)
+               bitwise equal to the default; each timed beside its bound and
+               plain version. Then the wide panel (WIDE_PANEL: 1,000 x 266
+               SNPs, 160 alleles, an HLA-B-like locus) trained by
+               train_parallel(mode="host") and (mode="fused") of WIDE_K
+               classifiers with no engine= override: the kernels launched,
+               mean OOB and held-out accuracy >= 0.9, the held-out
+               prediction and out_of_bag through the scoring kernel (A=160
+               is past the ensemble kernel); how many classifiers an
+               engine="torch" run matches over the first WIDE_TORCH_STEPS
+               greedy steps is printed as a reading. Last, a fused training
+               at hcap=4,160 (on_overflow="freeze"): every step's kernels at
+               H=4,160, of which a few hundred slots are live (the rest
+               padding; the live count is printed).
+`python3 chip_smoke.py --limits` runs phases 1, 2 and 10 alone.
 The line before the last is the kernels' JSON record (each kernel's
 launches on its phase's timed main-path run, with the counts set to 0 just
 before it; its time and its plain version's; its bound from this run's
@@ -443,7 +468,7 @@ def phase_kernel(dev, hap, g, w, A):
 
 
 def _train_case(rng, K, C, H, A, S, dev, n_sel=24, typed=True,
-                het_words=None, twins=((0, 1),)):
+                het_words=None, twins=((0, 1),), masks=None):
     """Kernel inputs of the training step: haplotypes in frequency order
     (alleles not grouped) with empty slots; samples 0 and 1 all-missing
     (sample 0 with weight), sample 2 of weight 0; frequencies dropped per
@@ -455,7 +480,9 @@ def _train_case(rng, K, C, H, A, S, dev, n_sel=24, typed=True,
     float32's denormal range (as after erase_rare drops a sample's true
     haplotypes). With ``het_words`` = w (and n_sel = 128) those samples hold
     heterozygous codes in exactly the last w of the four 32-SNP words: the
-    others' are made missing, and each kept word gets one."""
+    others' are made missing, and each kept word gets one. The EM's int8
+    and packed masks are made with `masks` (by default up to H=1,024; with
+    "packed", the packed mask alone)."""
     from hibag_tpu_torch.models.em import match_pairs, match_pairs_packed
 
     L = 128
@@ -504,8 +531,9 @@ def _train_case(rng, K, C, H, A, S, dev, n_sel=24, typed=True,
              fB=t(fB), fAe=t(fAe), fBe=t(fBe), oob=t(B == 0), A=A)
     args = (c["bits"], c["freq"] > 0, c["allele"], c["geno"], c["a1"],
             c["a2"])
-    if H <= 1024:
-        c["mask"] = match_pairs(*args).to(torch.int8)
+    if masks if masks is not None else H <= 1024:
+        if masks != "packed":
+            c["mask"] = match_pairs(*args).to(torch.int8)
         c["packed"] = match_pairs_packed(*args)
     return c
 
@@ -898,6 +926,19 @@ def _plans_line(c, label):
 EVAL_TWIN_CASES = ((2, 64, 256, 64), (1, 64, 4096, 16), (25, 32, 128, 64))
 
 
+def _packed_counts(packed):
+    """(set pairs, rows with a set pair) of a bit-packed mask [K, S, H,
+    H // 8], one sample at a time."""
+    lut = torch.tensor([bin(i).count("1") for i in range(256)],
+                       dtype=torch.int64, device=packed.device)
+    nnz = rows = 0
+    for s in range(packed.shape[1]):
+        x = packed[:, s]
+        nnz += int(lut[x.long()].sum())
+        rows += int((x != 0).any(-1).sum())
+    return float(nnz), float(rows)
+
+
 def _train_bound(name, c, flops_per_term=None):
     """_bound of a training kernel on _train_case's inputs c. EM: the mask
     (int8, or 1 bit a pair packed) and frequencies in, dfA, dfB and dll out;
@@ -912,10 +953,12 @@ def _train_bound(name, c, flops_per_term=None):
     K, C, H = c["fA"].shape
     N = c["geno"].shape[1]
     if name.startswith("em_estep"):
-        mask = c["mask"] != 0
-        nnz = float(mask.sum())
-        rows = float(mask.any(-1).sum())
-        mbytes = mask.numel() // (8 if name == "em_estep_packed" else 1)
+        if "mask" in c:
+            mask = c["mask"] != 0
+            nnz, rows = float(mask.sum()), float(mask.any(-1).sum())
+        else:
+            nnz, rows = _packed_counts(c["packed"])
+        mbytes = K * N * H * H // (8 if name == "em_estep_packed" else 1)
         nbytes = (mbytes + 4 * 4 * K * C * H + c["gc"].numel()
                   + 4 * c["B"].numel() + 4 * K * C)
         return _bound(nbytes, flops=C * (2 * nnz + 16 * rows))
@@ -1727,6 +1770,385 @@ def phase_files(card, model, geno, true1, true2, res, clear):
           f"{time.perf_counter() - t_phase:.1f} s | {card}")
 
 
+#: the [limits] phase's kernel shapes, past 4,096 haplotype slots and 128
+#: alleles: EM (K, C, H, A, S), evaluation (K, C, H, A, S), scoring (C, H,
+#: A, N); the last EM and evaluation shapes are the wide training's own
+#: (WIDE_K classifiers, 17 candidates, 832 slots, its 1,000 samples)
+LIMIT_EM = tuple((1, C, H, 14, 8) for H in (4160, 10016)
+                 for C in (1, 17, 64)) + ((2, 17, 832, 14, 1000),)
+LIMIT_EVAL = tuple((2, 17, H, A, S) for A in (130, 320)
+                   for H, S in ((64, 64), (512, 32), (4160, 16), (10016, 8))
+                   ) + ((2, 17, 832, 160, 1000),)
+LIMIT_SCORES = tuple((2, H, A, N) for H, N in ((4160, 8), (10016, 4))
+                     for A in (14, 160))
+#: the wide panel: an HLA-B-like locus, 1,000 typed samples x 266 SNPs and
+#: 160 alleles drawn (149 present), mosaic haplotypes; its classifiers and
+#: the greedy steps compared with engine="torch"
+WIDE_PANEL = (3, 1000, 266, 160)
+WIDE_K = 2
+WIDE_TORCH_STEPS = 5
+
+
+def _launched(name, fn):
+    """fn() and the launches it made of training kernel `name` (at least
+    one, or raises)."""
+    from hibag_tpu_torch.ops import train_step as ts
+
+    before = ts.LAUNCHES[name]
+    out = fn()
+    if ts.LAUNCHES[name] <= before:
+        raise AssertionError(f"{name} did not launch its kernel")
+    return out
+
+
+def _limit_line(name, label, ms, plain_ms, bound, extra=""):
+    return (f"[limits] {name} {label}: {extra}bitwise deterministic; "
+            f"{ms:.4f} ms (CUDA events, mean of 3), plain {plain_ms:.4f} ms, "
+            f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+
+
+def _limit_em(rng, dev):
+    """The two EM kernels at LIMIT_EM against their plain versions (rtol
+    1e-4), two runs bitwise equal, the packed kernel's forced device-memory
+    plan and block-taken samples bitwise equal to its default; each timed
+    beside its bound and its plain version."""
+    from hibag_tpu_torch.ops import _build
+    from hibag_tpu_torch.ops import train_step as ts
+
+    worst = 0.0
+    for shape in LIMIT_EM:
+        c = _train_case(rng, *shape, dev, masks=True)
+        label = "K={} C={} H={} A={} S={}".format(*shape)
+        for name, (kern, ref, args) in _em_calls(c).items():
+            e = _launched(name, lambda: _check_train_kernel(name, kern, ref,
+                                                            args, label))
+            worst = max(worst, e)
+            extra = f"max abs err {e:.3e}; "
+            if name == "em_estep_packed":
+                plan = _packed_variants(c, label)
+                smem = _build.load().hibag_em_packed_smem
+                both = smem(shape[2], shape[1], ts.EM_PAIR_LIST, 1) \
+                    <= ts.EM_SMEM_BYTES
+                extra += (f"plan (G, R, shared) {plan}, "
+                          + ("the forced device-memory plan and "
+                             if both else "")
+                          + "block-taken samples bitwise equal; ")
+            ms = _cuda_ms(lambda: kern(*args), 3)
+            plain_ms = _cuda_ms(lambda: ref(*args), 1)
+            print(_limit_line(name, label, ms, plain_ms,
+                              _train_bound(name, c), extra))
+        del c
+        torch.cuda.empty_cache()
+    return worst
+
+
+def _limit_eval(rng, dev):
+    """The evaluation kernel at LIMIT_EVAL against its plain version
+    (counts exact, -2logLik rtol 1e-4, identical candidates 0 and 1 bitwise
+    equal), two runs bitwise equal, and under each plan that fits beside the
+    default bitwise equal to it; timed beside its bound and plain version."""
+    from hibag_tpu_torch.ops import _build
+    from hibag_tpu_torch.ops import train_step as ts
+
+    name = "evaluate_candidates_kernel"
+    smem = _build.load().hibag_eval_smem
+    worst = 0.0
+    for shape in LIMIT_EVAL:
+        c = _train_case(rng, *shape, dev)
+        K, C, H, A, S = shape
+        label = "K={} C={} H={} A={} S={}".format(*shape)
+        kern, ref, args = _eval_call(c)
+        e = _launched(name, lambda: _check_train_kernel(name, kern, ref, args,
+                                                        label))
+        worst = max(worst, e)
+        M, plan, per = _eval_plan(c)
+        want = kern(*args)
+        forced = []
+        for p in (ts.EVAL_PLAN_DEVICE, ts.EVAL_PLAN_RECORDS):
+            if p >= plan:
+                continue
+            budget = int(smem(M, A, C, p))
+            got = kern(*args, smem_budget=budget)
+            torch.cuda.synchronize()
+            if _eval_plan(c, budget)[1] != p or not all(
+                    torch.equal(x, y) for x, y in zip(got, want)):
+                raise AssertionError(f"{name} {label}: plan {p} differs from "
+                                     f"plan {plan}")
+            forced.append(p)
+        ms = _cuda_ms(lambda: kern(*args), 3)
+        plain_ms = _cuda_ms(lambda: ref(*args), 1)
+        extra = (f"plan (M, plan, S) {(M, plan, per)}; counts exact, max abs "
+                 f"err {e:.3e}; "
+                 + (f"forced plans {forced} bitwise equal; " if forced
+                    else ""))
+        print(_limit_line(name, label, ms, plain_ms, _train_bound(name, c),
+                          extra))
+        del c
+        torch.cuda.empty_cache()
+    return worst
+
+
+def _limit_scores(rng, dev):
+    """The scoring kernel at LIMIT_SCORES through ensemble_scores against
+    its plain version (_check_scores: dmin exact, S symmetric, S and total
+    at rtol 2e-4, two runs bitwise equal); the records-in-device-memory
+    route, with one block a classifier taking every sample, bitwise equal
+    to the default route; timed beside its bound and plain version."""
+    from hibag_tpu_torch.ops import _build
+    from hibag_tpu_torch.ops import post_scores as ps
+
+    lib = _build.load()
+    worst = 0.0
+    for C, H, A, N in LIMIT_SCORES:
+        hap, g, tie = _score_case(rng, C, H, A, N, dev)
+        label = f"C={C} H={H} A={A} N={N}"
+        before = ps.LAUNCHES
+        e = _check_scores(hap, g, A, label, tie)
+        if ps.LAUNCHES <= before:
+            raise AssertionError("ensemble_scores did not launch its kernel")
+        worst = max(worst, e)
+        route = ps.scores_plan(H, A, C, N, lib.hibag_post_scores_smem)
+        want = ps.ensemble_scores(hap, g, A)
+        got = ps.ensemble_scores(
+            hap, g, A, smem_budget=int(lib.hibag_post_scores_smem(H, A, 0)),
+            record_budget=C * ps.record_bytes(H))
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"scores {label}: the one-block device "
+                                 "route differs from the default")
+        ms = _cuda_ms(lambda: ps.ensemble_scores(hap, g, A), 3)
+        plain_ms = _cuda_ms(lambda: ps.ensemble_scores_ref(hap, g, A), 1)
+        extra = (f"route (shared, NB, record bytes) {route}; dmin exact, S "
+                 f"symmetric, S max abs err {e:.3e}; the device route at "
+                 "NB=1 bitwise equal; ")
+        print(_limit_line("post_scores", label, ms, plain_ms,
+                          _scores_bound(hap, g, A), extra))
+    return worst
+
+
+class _Stop(Exception):
+    """Ends a training after the greedy steps a phase compares."""
+
+
+def _record_steps(module, attr, store, stop_after=None):
+    """Wraps module.attr (a grow_step) so that each call's arguments and
+    results go to `store`; with `stop_after`, raises _Stop after that many
+    calls. Returns a function that restores it."""
+    orig = getattr(module, attr)
+
+    def rec(*a, **k):
+        out = orig(*a, **k)
+        # copies: on the CPU a caller's tensor may share a buffer it updates
+        store.append((tuple(x.clone() if torch.is_tensor(x) else x
+                            for x in a), k, out))
+        if stop_after is not None and len(store) >= stop_after:
+            raise _Stop
+        return out
+    setattr(module, attr, rec)
+    return lambda: setattr(module, attr, orig)
+
+
+def _same_steps(kern, plain, K):
+    """(classifiers whose first len(plain) greedy steps took the same inputs
+    in the kernels' run and in the plain versions' (the live haplotypes'
+    bits and alleles and the selected genotypes exact, their frequencies at
+    rtol 1e-4) and gave the same counts (exact) and -2logLik (rtol 1e-4) at
+    each step, [(classifier, step, what) where each of the others parted,
+    what being "inputs", "frequencies", "counts" of the candidates named,
+    or "-2logLik"])."""
+    same, parted = 0, []
+    for k in range(K):
+        what = None
+        for i, ((x, _, xo), (y, _, yo)) in enumerate(zip(kern, plain)):
+            h = int((x[1][k] > 0).sum())
+            if h != int((y[1][k] > 0).sum()) or not all(
+                    torch.equal(u.cpu(), v.cpu()) for u, v in (
+                        (x[0][k, :h], y[0][k, :h]),
+                        (x[2][k, :h], y[2][k, :h]), (x[3][k], y[3][k]))):
+                what = "inputs"
+            elif not torch.allclose(x[1][k, :h], y[1][k, :h], rtol=1e-4,
+                                    atol=0):
+                what = "frequencies"
+            elif not torch.equal(xo[2][k].cpu(), yo[2][k].cpu()):
+                cs = (xo[2][k] != yo[2][k]).nonzero()[:, 0].tolist()
+                what = f"counts of candidates {cs}"
+            elif not torch.allclose(xo[3][k], yo[3][k], rtol=1e-4, atol=0):
+                what = "-2logLik"
+            if what:
+                parted.append((k, i, what))
+                break
+        same += what is None and len(kern) >= len(plain)
+    return same, parted
+
+
+def _wide_predict(model, hgeno, htable, label):
+    """Held-out prediction of a model wider than the ensemble kernel takes:
+    through the scoring kernel, not ens_acc; returns (accuracy, launches)."""
+    from hibag_tpu_torch import predict
+    from hibag_tpu_torch.ops import ens_acc
+    from hibag_tpu_torch.ops import post_scores as ps
+
+    ps.LAUNCHES = 0
+    ens_acc.LAUNCHES = 0
+    res = predict(model, hgeno, device="cuda")
+    torch.cuda.synchronize()
+    if ps.LAUNCHES < 1 or ens_acc.LAUNCHES:
+        raise AssertionError(f"{label}: held-out predict launched scoring "
+                             f"{ps.LAUNCHES}, ens_acc {ens_acc.LAUNCHES}")
+    return res.accuracy_vs(htable.allele1, htable.allele2), ps.LAUNCHES
+
+
+def _wide_training(card):
+    """train_parallel(mode="host") and (mode="fused") of WIDE_K classifiers
+    on the wide panel with no engine= override: the kernels launched, OOB
+    and held-out accuracy >= 0.9 (held-out through the scoring kernel),
+    out_of_bag through it; classifiers equal to an engine="torch" run over
+    the first WIDE_TORCH_STEPS greedy steps, as a reading. Then a fused
+    training at hcap=4,160 on a small wide panel: every step's kernels
+    at H=4,160, its live slots (at most 4,096) printed."""
+    import collections
+
+    from hibag_tpu_torch import out_of_bag, train_parallel
+    from hibag_tpu_torch.models import em
+    from hibag_tpu_torch.models import train as train_mod
+    from hibag_tpu_torch.models import train_fused
+    from hibag_tpu_torch.ops import post_scores as ps
+    from hibag_tpu_torch.ops import train_step as ts
+    from hibag_tpu_torch.utils.synthetic import (PANEL_RECOMBINATION,
+                                                 synthetic_panel)
+
+    seed, n, p, a = WIDE_PANEL
+    (table, geno), (htable, hgeno) = synthetic_panel(
+        seed, n, p, a, n_held_out=500, recombination=PANEL_RECOMBINATION)
+    present = len(np.unique(np.concatenate([table.allele1, table.allele2])))
+    kw = dict(n_classifiers=WIDE_K, batch=WIDE_K, seed=100, mtry=17,
+              verbose=False, with_matching=False, device="cuda")
+    lines = []
+    for mode in ("host", "fused"):
+        extra = (dict(hcap=256, max_steps=192, on_overflow="freeze")
+                 if mode == "fused" else {})
+        steps = []
+        where = train_mod if mode == "host" else train_fused
+        tier, tiers = em.mask_tier, collections.Counter()
+
+        def counted_tier(*x):
+            t = tier(*x)
+            tiers[t] += 1
+            return t
+        restore = _record_steps(where, "grow_step", steps)
+        em.mask_tier = counted_tier
+        for k in ts.LAUNCHES:
+            ts.LAUNCHES[k] = 0
+        try:
+            t0 = time.perf_counter()
+            model = train_parallel(table, geno, mode=mode, **kw, **extra)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+        finally:
+            restore()
+            em.mask_tier = tier
+        launches = dict(ts.LAUNCHES)
+        if launches["em_estep"] + launches["em_estep_packed"] < 1 \
+                or launches["evaluate_candidates_kernel"] < 1:
+            raise AssertionError(f"wide {mode}: the kernels did not launch: "
+                                 f"{launches}")
+        _freq_sums(model, f"wide {mode}")
+        oob = float(np.mean([c.oob_accuracy for c in model.classifiers]))
+        acc, n_ps = _wide_predict(model, hgeno, htable, f"wide {mode}")
+        if oob < 0.9 or acc < 0.9:
+            raise AssertionError(f"wide {mode}: mean OOB {oob:.4f}, held-out "
+                                 f"{acc:.4f} (< 0.9)")
+        n_hap = [c.n_haplo for c in model.classifiers]
+        H = max(s[0][0].shape[1] for s in steps)
+        line = (f"[limits] train_parallel(mode='{mode}') N={n} P={p} A={a} "
+                f"({present} present) K={WIDE_K} mtry=17: "
+                f"{WIDE_K / elapsed:.4f} classifiers/s ({elapsed:.3f} s), "
+                f"{len(steps)} steps up to H={H}, launches: EM int8 "
+                f"{launches['em_estep']}, packed "
+                f"{launches['em_estep_packed']}, eval "
+                f"{launches['evaluate_candidates_kernel']}; mask tiers "
+                f"{dict(tiers)}; mean OOB {oob:.4f}; held-out accuracy "
+                f"{acc:.4f} (500 samples, post_scores launches {n_ps}, "
+                f"ens_acc 0); haplotypes {min(n_hap)}..{max(n_hap)}")
+        if mode == "host":
+            ps.LAUNCHES = 0
+            res = out_of_bag(model, table, geno, device="cuda")
+            if ps.LAUNCHES < WIDE_K:
+                raise AssertionError(f"out_of_bag launched the scoring "
+                                     f"kernel {ps.LAUNCHES} times")
+            plain = []
+            restore = _record_steps(train_mod, "grow_step", plain,
+                                    WIDE_TORCH_STEPS)
+            try:
+                train_parallel(table, geno, mode="host", engine="torch", **kw)
+            except _Stop:
+                pass
+            finally:
+                restore()
+            same, parted = _same_steps(steps[:WIDE_TORCH_STEPS], plain,
+                                       WIDE_K)
+            line += (f"; out_of_bag acc.haplo "
+                     f"{res['overall']['acc.haplo']:.4f} (post_scores "
+                     f"launches {ps.LAUNCHES}); equal to engine='torch' over "
+                     f"the first {WIDE_TORCH_STEPS} greedy steps: "
+                     f"{same}/{WIDE_K}, parted (classifier, step, what) "
+                     f"{parted}")
+        lines.append(line + f" | {card}")
+        print(lines[-1])
+
+    # the kernels at H=4,160 from a training: the fused trainer sized to a
+    # capacity of 4,160 slots, a few steps on a small wide panel. Its live
+    # slots stay far below 4,096 (the padding makes the width); growth by
+    # freeze or retry stops at RETRY_MAX_HCAP = 4,096, as in hibag_tpu
+    (t2, g2), _ = synthetic_panel(seed + 1, 120, 40, a,
+                                  recombination=PANEL_RECOMBINATION)
+    steps = []
+    restore = _record_steps(train_fused, "grow_step", steps)
+    for k in ts.LAUNCHES:
+        ts.LAUNCHES[k] = 0
+    try:
+        t0 = time.perf_counter()
+        model = train_parallel(t2, g2, n_classifiers=1, batch=1, seed=100,
+                               mtry=8, verbose=False, with_matching=False,
+                               mode="fused", hcap=4160, max_steps=4,
+                               on_overflow="freeze", device="cuda")
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    finally:
+        restore()
+    launches = dict(ts.LAUNCHES)
+    Hs = sorted({s[0][0].shape[1] for s in steps})
+    live = max(int((s[0][1] > 0).sum(1).max()) for s in steps)
+    if Hs != [4160] or not 0 < live <= 4096 \
+            or launches["evaluate_candidates_kernel"] != len(steps) \
+            or launches["em_estep"] + launches["em_estep_packed"] < 1:
+        raise AssertionError(f"hcap=4160: steps at H={Hs}, {live} live "
+                             f"slots, launches {launches}")
+    _freq_sums(model, "hcap=4160")
+    print(f"[limits] train_parallel(mode='fused', hcap=4160, "
+          f"on_overflow='freeze') N=120 P=40 A={a} K=1 mtry=8: {len(steps)} "
+          f"steps at H=4160 (live slots up to {live}, the rest padding) in "
+          f"{elapsed:.3f} s, launches: EM int8 "
+          f"{launches['em_estep']}, packed {launches['em_estep_packed']}, "
+          f"eval {launches['evaluate_candidates_kernel']}; OOB "
+          f"{model.classifiers[0].oob_accuracy:.4f} | {card}")
+
+
+def phase_limits(dev, card):
+    """Phase 10: the kernels past 4,096 slots and 128 alleles, then the
+    wide locus trained and scored on the card."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 10)
+    em_err = _limit_em(rng, dev)
+    ev_err = _limit_eval(rng, dev)
+    sc_err = _limit_scores(rng, dev)
+    t1 = time.perf_counter()
+    _wide_training(card)
+    print(f"[limits] kernels {t1 - t0:.1f} s (EM max abs err {em_err:.3e}, "
+          f"evaluation {ev_err:.3e}, scoring {sc_err:.3e}), training "
+          f"{time.perf_counter() - t1:.1f} s | {card}")
+
+
 def main():
     dev, card = phase_device()
     phase_build()
@@ -1805,6 +2227,7 @@ def main():
     wide = phase_wide(dev, card)
     phase_host(card, fused_rate)
     phase_files(card, model, geno, true1, true2, res, clear)
+    phase_limits(dev, card)
 
     kernels = [{"name": "ens_acc", "route": "cuda",
                 "source": "hibag_tpu_torch/csrc/ens_acc.cu",
@@ -1835,5 +2258,14 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+def limits_only():
+    """Phase 10 alone, after phases 1 and 2; prints no result line."""
+    dev, card = phase_device()
+    phase_build()
+    phase_limits(dev, card)
+
+
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--limits"]:
+        sys.exit(limits_only())
     sys.exit(main())

@@ -16,10 +16,11 @@ out (`write_vcf`, BGZF ``.vcf.gz``), GDS (`read_gds`), R ``.RData``/``.rds``
 (`read_rdata`, `read_rds`, `r_to_py`, `save_rdata`, `model_to_robj`); the
 genotype helpers (`switch_strand`, `combine_geno`); `report`, the
 association tests (`assoc_test`, `aa_assoc_test`, `format_assoc`) and the
-matplotlib plots; and the CLI, ``python -m hibag_tpu_torch
-impute|train|convert|summary|report`` (hibag_tpu_torch/cli.py). Not yet
-ported: multiple devices, `seq` (amino-acid conversion) and
-`utils.bench_data`.
+matplotlib plots; the amino-acid conversion (`convert_table`,
+`hlaConvSequence`, `conv_sequence`, `AASeqTable`, `format_residue_table`);
+the benchmark datasets (`utils.bench_data`); and the CLI, ``python -m
+hibag_tpu_torch impute|train|convert|summary|report``
+(hibag_tpu_torch/cli.py). Not yet ported: multiple devices.
 """
 
 __version__ = "0.1.0"
@@ -48,10 +49,12 @@ from .models.predict import PredictionResult, predict
 from .models.publish import (model_files, model_to_robj, out_of_bag,
                              pred_merge, publish, save_rdata)
 from .models.train import train, train_parallel
+from .seq.aa import (AASeqTable, conv_sequence, convert_table,
+                     format_residue_table)
 from .utils.rng import RRng
 
 # R-API compatibility aliases (hla* names from the reference's NAMESPACE,
-# as hibag_tpu/__init__.py names them; hlaConvSequence waits for `seq`)
+# as hibag_tpu/__init__.py names them)
 hlaAttrBagging = train
 hlaParallelAttrBagging = train_parallel
 hlaPredict = predict
@@ -87,6 +90,7 @@ hlaOutOfBag = out_of_bag
 hlaDistance = allele_distance
 hlaGenoLD = geno_ld
 hlaLDMatrix = ld_matrix
+hlaConvSequence = convert_table
 hlaReport = report
 hlaCheckAllele = check_allele
 hlaCheckSNPs = check_snps

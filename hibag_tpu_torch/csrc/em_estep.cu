@@ -77,7 +77,10 @@
 //    list and the block-wide row sums).
 //  * K is a grid dimension: each classifier has its own mask, fA/fB, B.
 //  * Exactly C candidates: no candidate padding.
-// Limits: H a multiple of 32, H <= 4096, 1 <= C <= 64.
+// Limits: H a multiple of 32, H <= 65,536 (the row and pair lists hold slot
+// indices in 16 bits; the shared memory of both kernels grows with H: the
+// int8 kernel's row list and flags 3 bytes a slot, the packed kernel's row
+// bitmasks and row list; past 48 KB it is asked for), 1 <= C <= 64.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -127,8 +130,8 @@ em_estep_kernel(const uint8_t* __restrict__ mask, const float* __restrict__ fA,
                 const float* __restrict__ Bw, float* __restrict__ part,
                 float* __restrict__ dllp, int S, int H, int C, int G) {
   extern __shared__ __align__(16) unsigned char smem[];
-  int* act = reinterpret_cast<int*>(smem);                 // [H]
-  unsigned char* active = smem + sizeof(int) * H;          // [H]
+  unsigned short* act = reinterpret_cast<unsigned short*>(smem);  // [H]
+  unsigned char* active = smem + sizeof(unsigned short) * H;      // [H]
   __shared__ float red[4][kThreads];
   __shared__ int s_off[kThreads];
   __shared__ int s_nact;
@@ -165,7 +168,7 @@ em_estep_kernel(const uint8_t* __restrict__ mask, const float* __restrict__ fA,
     __syncthreads();
     for (int idx = tid; idx < H * W; idx += kThreads) {
       const int h = idx / W, w = idx - h * W;
-      if (load_word(ms + h * row_bytes, w)) active[h] = 1;
+      if (load_word(ms + (size_t)h * row_bytes, w)) active[h] = 1;
     }
     __syncthreads();
 
@@ -189,7 +192,7 @@ em_estep_kernel(const uint8_t* __restrict__ mask, const float* __restrict__ fA,
     {
       int o = s_off[tid];
       for (int h = h0; h < h1; ++h)
-        if (active[h]) act[o++] = h;
+        if (active[h]) act[o++] = (unsigned short)h;
     }
     __syncthreads();
     const int nact = s_nact;
@@ -200,7 +203,7 @@ em_estep_kernel(const uint8_t* __restrict__ mask, const float* __restrict__ fA,
       for (int r = p; r < nact; r += P) {
         const int h = act[r];
         float tA, tB;
-        row_sums(ms + h * row_bytes, W, fac, fbc, tA, tB);
+        row_sums(ms + (size_t)h * row_bytes, W, fac, fbc, tA, tB);
         const float fa = fac[h], fb = fbc[h];
         a00 += fa * tA;
         a01 += fa * tB;
@@ -243,7 +246,7 @@ em_estep_kernel(const uint8_t* __restrict__ mask, const float* __restrict__ fA,
       for (int r = p; r < nact; r += P) {
         const int h = act[r];
         float tA, tB;
-        row_sums(ms + h * row_bytes, W, fac, fbc, tA, tB);
+        row_sums(ms + (size_t)h * row_bytes, W, fac, fbc, tA, tB);
         pA[(size_t)c * H + h] += w00 * tA + w01 * tB;
         pB[(size_t)c * H + h] += w01 * tA + w11 * tB;
       }
@@ -760,14 +763,23 @@ extern "C" int hibag_em_estep(const void* mask, const void* fA, const void* fB,
                               int K, int S, int H, int C, int G,
                               float total_n, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = (size_t)H * (sizeof(int) + 1);
+  if (H % 32 || H > 65536 || C < 1 || C > 64)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)H * (sizeof(unsigned short) + 1);
+  cudaError_t err;
+  if (smem > 48 * 1024) {  // past the default, asked for (H > 16,384)
+    err = cudaFuncSetAttribute(em_estep_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   const dim3 grid(G, K);
   em_estep_kernel<<<grid, kThreads, smem, st>>>(
       static_cast<const uint8_t*>(mask), static_cast<const float*>(fA),
       static_cast<const float*>(fB), static_cast<const int8_t*>(gc),
       static_cast<const float*>(B), static_cast<float*>(part),
       static_cast<float*>(dllp), S, H, C, G);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   em_finish_kernel<<<finish_blocks((size_t)K * C * H), 256, 0, st>>>(
       static_cast<const float*>(part), static_cast<const float*>(dllp),
@@ -797,7 +809,7 @@ extern "C" int hibag_em_packed(const void* mask, const void* fA,
                                int C, int G, int R, int lcap, int shared,
                                float total_n, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (H % 32 || H > 4096 || C < 1 || C > 64 || R < 1 || lcap < 0
+  if (H % 32 || H > 65536 || C < 1 || C > 64 || R < 1 || lcap < 0
       || lcap > 65535 || (size_t)G * R < (size_t)S)
     return (int)cudaErrorInvalidValue;
   PkArgs p;

@@ -51,8 +51,11 @@
 //  * A block owns one classifier and a run of samples: the penalty table and
 //    the candidates' frequencies ([slot][candidate]) are loaded once for the
 //    run, with the row scratch and the cell grids beside them in shared
-//    memory. Where they do not fit, the frequencies are read from device
-//    memory (L1) and the scratch and grids sit in a device scratch.
+//    memory (plan 1). Where they do not fit, the frequencies are read from
+//    device memory (L1) and the scratch and grids sit in a device scratch
+//    (plan 0); where not even the slot records fit (24 bytes a slot, past
+//    about 9,000 slots), the records go to the block's device scratch too
+//    (plan -1). The three plans do the same arithmetic in the same order.
 //  * Determinism: one writer per (sample, candidate, cell), in a fixed
 //    order; no float atomics. A candidate's arithmetic is the same wherever
 //    it sits in a group or a float4 (explicitly rounded products and sums),
@@ -61,7 +64,8 @@
 //    sample order.
 //  * Ties: the best guess is the smallest packed upper-triangle index among
 //    equal maxima, which is the first row-major maximum of the full grid.
-// Limits: H <= 4096 haplotype slots, A <= 128 alleles, C <= 64 candidates.
+// Limits: H <= 46,340 haplotype slots (the slot-pair triangle is indexed in
+// int32), C <= 64 candidates; A and H otherwise by the device scratch.
 
 #include <cuda_runtime.h>
 #include <cfloat>
@@ -85,23 +89,37 @@ constexpr unsigned kFull = 0xffffffffu;
 
 __host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
 
+// Plans: where the frequencies, the row scratch, the cell grids and the slot
+// records are (ops/train_step.py::eval_plan).
+constexpr int kPlanShared = 1;    // all in shared memory
+constexpr int kPlanDevice = 0;    // records in shared memory, the rest not
+constexpr int kPlanRecords = -1;  // nothing but the table and pd in shared
+
 // The dynamic shared memory's layout, in bytes from its start.
 struct Layout {
-  int pd, ao, rec, ext, fq, contrib, grid, end;
-  // Cp: the candidates padded to 4; with `shared` the frequencies, the
-  // scratch and the grids too
-  __host__ __device__ Layout(int M, int A, int Cp, bool shared) {
-    pd = kTab * 4;                       // float [3][Cp]
-    ao = pd + 3 * Cp * 4;                // int [A + 1]
-    rec = ao + round4(A + 1) * 4;        // uint4 [M]
-    ext = rec + M * 16;                  // uint2 [M]
-    fq = ext + M * 8;                    // float4 [M][Cp / 4][2]
-    contrib = fq + (shared ? M * Cp * 8 : 0);     // float [M][Cp]
-    const int ncell = A * (A + 1) / 2;
-    grid = contrib + (shared ? M * Cp * 4 : 0);   // float [Cp][ncell]
-    end = grid + (shared ? Cp * ncell * 4 : 0);
+  long long pd, ao, rec, ext, fq, contrib, grid, end;
+  // Cp: the candidates padded to 4
+  __host__ __device__ Layout(int M, int A, int Cp, int plan) {
+    const bool shared = plan == kPlanShared;
+    const long long ncell = (long long)A * (A + 1) / 2;
+    pd = kTab * 4;                                // float [3][Cp]
+    ao = pd + 3LL * Cp * 4;                       // int [A + 1]
+    rec = ao + round4(A + 1) * 4LL;               // uint4 [M]
+    ext = rec + (plan >= kPlanDevice ? 16LL * M : 0);  // uint2 [M]
+    fq = ext + (plan >= kPlanDevice ? 8LL * M : 0);    // float4 [M][Cp/4][2]
+    contrib = fq + (shared ? 8LL * M * Cp : 0);   // float [M][Cp]
+    grid = contrib + (shared ? 4LL * M * Cp : 0); // float [Cp][ncell]
+    end = grid + (shared ? 4LL * Cp * ncell : 0);
   }
 };
+
+// Floats of a block's device scratch in plans 0 and -1: the row scratch and
+// the cell grids, then (plan -1) the slot records as uint4 [M] and uint2 [M].
+__host__ __device__ inline long long block_scratch(int M, int A, int Cp,
+                                                   int plan) {
+  return (long long)Cp * M + (long long)Cp * A * (A + 1) / 2
+       + (plan == kPlanRecords ? 6LL * M : 0);
+}
 
 struct Args {
   const uint4* hb;       // [K, H] ok slots first, sorted by allele
@@ -117,8 +135,8 @@ struct Args {
   const float* pen_tab;  // [kPenLen]
   int* accp;             // [K, C, N]
   float* llp;
-  float* gscratch;       // per block [M * Cp + Cp * ncell], or null
-  int H, N, C, A, M, NG, S;  // NG = Cp / 4 groups of 4 candidates
+  float* gscratch;       // per block block_scratch(...) floats, or null
+  int H, N, C, A, M, NG, S, plan;  // NG = Cp / 4 groups of 4 candidates
 };
 
 // Where a block's frequencies and scratch are.
@@ -295,12 +313,10 @@ template <bool kShared>
 __global__ void __launch_bounds__(kThreads) eval_kernel(Args p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ pair_cells::Scratch<kThreads> sc;
-  const Layout L(p.M, p.A, 4 * p.NG, kShared);
+  const Layout L(p.M, p.A, 4 * p.NG, p.plan);
   float* tab = reinterpret_cast<float*>(smem);
   float* pd = reinterpret_cast<float*>(smem + L.pd);
   int* ao = reinterpret_cast<int*>(smem + L.ao);
-  uint4* rec = reinterpret_cast<uint4*>(smem + L.rec);
-  uint2* ext = reinterpret_cast<uint2*>(smem + L.ext);
   float4* fqs = reinterpret_cast<float4*>(smem + L.fq);
 
   const int tid = threadIdx.x;
@@ -310,12 +326,12 @@ __global__ void __launch_bounds__(kThreads) eval_kernel(Args p) {
   const int m = p.nok[k];
   const float4* fqk = p.fq + (size_t)k * p.H * p.NG * 2;
 
+  uint4* rec;
+  uint2* ext;
   Block x;
   x.tab = tab;
   x.pd = pd;
   x.ao = ao;
-  x.rec = rec;
-  x.ext = ext;
   x.m = m;
   x.ncell = ncell;
   if (kShared) {
@@ -325,10 +341,19 @@ __global__ void __launch_bounds__(kThreads) eval_kernel(Args p) {
     for (int u = tid; u < m * 2 * p.NG; u += kThreads) fqs[u] = fqk[u];
   } else {
     x.contrib = p.gscratch + ((size_t)blockIdx.y * gridDim.x + blockIdx.x)
-                                 * ((size_t)p.M * Cp + (size_t)Cp * ncell);
+                                 * (size_t)block_scratch(p.M, A, Cp, p.plan);
     x.grid = x.contrib + (size_t)p.M * Cp;
     x.fq = fqk;
   }
+  if (p.plan == kPlanRecords) {  // 16-byte aligned: Cp and M are 4k
+    rec = reinterpret_cast<uint4*>(x.grid + (size_t)Cp * ncell);
+    ext = reinterpret_cast<uint2*>(rec + p.M);
+  } else {
+    rec = reinterpret_cast<uint4*>(smem + L.rec);
+    ext = reinterpret_cast<uint2*>(smem + L.ext);
+  }
+  x.rec = rec;
+  x.ext = ext;
 
   for (int i = tid; i < kTab; i += kThreads)
     tab[i] = i < kPenLen ? p.pen_tab[i] : 0.f;
@@ -395,30 +420,31 @@ cudaError_t launch(const Args& p, dim3 grid, size_t smem, cudaStream_t st) {
 }  // namespace
 
 // Bytes of dynamic shared memory for M slots (a multiple of 4), A alleles
-// and C candidates, with the frequencies, the scratch and the grids in
-// shared memory or not.
-extern "C" long long hibag_eval_smem(int M, int A, int C, int shared) {
-  return Layout(M, A, round4(C), shared != 0).end;
+// and C candidates under `plan` (1, 0 or -1, see kPlanShared).
+extern "C" long long hibag_eval_smem(int M, int A, int C, int plan) {
+  return Layout(M, A, round4(C), plan).end;
 }
 
 // hb: int32 [K,H,4] ok slots first, sorted by allele; al: int32 [K,H] their
 // alleles; nok: int32 [K] ok slots; fq: f32 [K,H,NG,2,4] (fA then fB of
 // candidates 4g..4g+3, 0 past C); gcand: int8 [K,C,N]; geno: int8 [K,N,128];
 // a1, a2: int32 [N]; oob: uint8 [K,N]; B: f32 [K,N]; pen_tab: f32 [257];
-// accp: int32 [K,C,N], llp: f32 [K,C,N] scratch; gscratch: f32, per block
-// M*Cp + Cp*A(A+1)/2 with Cp = C rounded up to 4, when shared is 0 (else
-// null); acc: int32 [K,C]; ll: f32 [K,C]. A block takes S samples of one
+// accp: int32 [K,C,N], llp: f32 [K,C,N] scratch; gscratch: per block
+// 4 * block_scratch(M, A, Cp, plan) bytes under plans 0 and -1 (else null;
+// ops/train_step.py::eval_scratch_bytes);
+// acc: int32 [K,C]; ll: f32 [K,C]. A block takes S samples of one
 // classifier; M >= max nok, a multiple of 4.
 extern "C" int hibag_eval_cand(const void* hb, const void* al, const void* nok,
                                const void* fq, const void* gcand,
                                const void* geno, const void* a1,
                                const void* a2, const void* oob, const void* B,
                                const void* pen_tab, void* accp, void* llp,
-                               void* gscratch, void* acc, void* ll, int K,
-                               int H, int N, int C, int A, int M, int S,
-                               int shared, void* stream) {
+                               void* gscratch, void* acc, void* ll,
+                               int K, int H, int N, int C, int A, int M, int S,
+                               int plan, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M % 4 || S < 1 || (!shared && !gscratch))
+  if (M % 4 || S < 1 || H > 46340 || plan < kPlanRecords
+      || plan > kPlanShared || (plan != kPlanShared && !gscratch))
     return (int)cudaErrorInvalidValue;
   Args p;
   p.hb = static_cast<const uint4*>(hb);
@@ -442,10 +468,12 @@ extern "C" int hibag_eval_cand(const void* hb, const void* al, const void* nok,
   p.M = M;
   p.NG = (C + 3) / 4;
   p.S = S;
-  const size_t smem = (size_t)hibag_eval_smem(M, A, C, shared);
+  p.plan = plan;
+  const size_t smem = (size_t)hibag_eval_smem(M, A, C, plan);
   const dim3 grid((N + S - 1) / S, K);
-  const cudaError_t err = shared ? launch<true>(p, grid, smem, st)
-                                 : launch<false>(p, grid, smem, st);
+  const cudaError_t err = plan == kPlanShared
+                              ? launch<true>(p, grid, smem, st)
+                              : launch<false>(p, grid, smem, st);
   if (err != cudaSuccess) return (int)err;
   const int KC = K * C;
   eval_finish_kernel<<<(KC + 255) / 256, 256, 0, st>>>(

@@ -385,8 +385,29 @@ def compare_count(g1, g2, t1, t2):
     return m1.to(torch.int32) + m2.to(torch.int32)
 
 
+def _tri_index(g1, g2, A):
+    """Packed upper-triangle index of allele cell (g1, g2), g1 <= g2."""
+    return g1 * A - g1 * (g1 - 1) // 2 + (g2 - g1)
+
+
+def _top_two(V, A):
+    """(best value, its packed cell index, second value, its index) over the
+    unordered allele cells of V [..., A, A] (Sc * (2 - I), symmetric in real
+    arithmetic): the first row-major maxima, the second with both mirrors
+    of the best left out."""
+    flat = V.reshape(*V.shape[:-2], A * A)
+    b = flat.argmax(dim=-1, keepdim=True)
+    g1, g2 = torch.minimum(b // A, b % A), torch.maximum(b // A, b % A)
+    rest = flat.scatter(-1, torch.cat([g1 * A + g2, g2 * A + g1], -1),
+                        -torch.inf)
+    s = rest.argmax(dim=-1, keepdim=True)
+    h1, h2 = torch.minimum(s // A, s % A), torch.maximum(s // A, s % A)
+    return (flat.gather(-1, b)[..., 0], _tri_index(g1, g2, A)[..., 0],
+            rest.gather(-1, s)[..., 0], _tri_index(h1, h2, A)[..., 0])
+
+
 def _evaluate_one(bits, allele, fA, fB, g_cand, geno_sel, a1, a2, is_oob, B,
-                  n_alleles, per_sample=False):
+                  n_alleles, per_sample=False, detail=False):
     """hibag_tpu's evaluate_candidates for one classifier (em.py:599-708)."""
     C, H = fA.shape
     N = geno_sel.shape[0]
@@ -399,7 +420,7 @@ def _evaluate_one(bits, allele, fA, fB, g_cand, geno_sel, a1, a2, is_oob, B,
     eye2 = 2.0 - torch.eye(A, dtype=dt, device=fA.device)
     acc = torch.zeros(C, dtype=torch.int32, device=fA.device)
     ll = torch.zeros(C, dtype=dt, device=fA.device)
-    tqs, totals = [], []
+    tqs, totals, dets = [], [], []
     c, _ = _chunk_plan(N, C * 2 * H * A, 8 * 1024 * 1024)
     for s in range(0, N, c):
         e = min(s + c, N)
@@ -415,7 +436,15 @@ def _evaluate_one(bits, allele, fA, fB, g_cand, geno_sel, a1, a2, is_oob, B,
         pd2 = torch.stack([pd[..., :2], pd[..., 1:]], dim=-2)  # [C, n, 2, 2]
         Sc = torch.einsum("cnbe,cnbeAB->cnAB", pd2, Sb)
         total = Sc.sum(dim=(2, 3))
-        b = (Sc * eye2).reshape(C, n, A * A).argmax(dim=2)
+        V = Sc * eye2
+        if detail:
+            ta1, ta2 = a1[s:e].long(), a2[s:e].long()
+            tq_raw = (Sc[:, torch.arange(n, device=fA.device), ta1, ta2]
+                      * torch.where(ta1 == ta2, 1.0, 2.0)[None].to(dt))
+            bv, bk, sv, sk = _top_two(V, A)
+            dets.append(torch.stack([total, tq_raw, bv, bk.to(dt), sv,
+                                     sk.to(dt)], dim=-1))
+        b = V.reshape(C, n, A * A).argmax(dim=2)
         g1 = torch.minimum(b // A, b % A)
         g2 = torch.maximum(b // A, b % A)
         ta1, ta2 = a1[s:e].long(), a2[s:e].long()
@@ -438,6 +467,8 @@ def _evaluate_one(bits, allele, fA, fB, g_cand, geno_sel, a1, a2, is_oob, B,
             totals.append(total)
     if per_sample:
         return acc, ll, torch.cat(tqs, 1), torch.cat(totals, 1)
+    if detail:
+        return acc, ll, torch.cat(dets, 1)
     return acc, ll
 
 
@@ -469,7 +500,8 @@ def flush_denormals():
 
 
 def evaluate_candidates(bits, allele, fA, fB, g_cand, geno_sel, a1, a2,
-                        is_oob, B, n_alleles, per_sample=False):
+                        is_oob, B, n_alleles, per_sample=False,
+                        detail=False):
     """OOB best-guess accuracy count and in-bag -2logLik of every candidate,
     for K classifiers: bits [K, H, L]; allele [K, H]; fA/fB [K, C, H]
     post-erase (0 = dropped); g_cand [K, C, N]; geno_sel [K, N, L]; a1/a2
@@ -477,7 +509,11 @@ def evaluate_candidates(bits, allele, fA, fB, g_cand, geno_sel, a1, a2,
 
     Returns (acc [K, C] int32, summed 0/1/2 per OOB sample; loglik [K, C]),
     and with ``per_sample`` also each sample's true-pair score and total
-    (the numerator and denominator of its posterior), [K, C, N].
+    (the numerator and denominator of its posterior), [K, C, N]; with
+    ``detail`` instead a third result [K, C, N, 6]: each sample's total and
+    true-pair score before the FLT_MIN rule, and the value and packed
+    upper-triangle index of its best and second-best allele cells (for
+    diagnosis: utils/wide_steps.py).
     Per classifier the JAX module's factorised arithmetic: one penalty matrix
     over the base haplotypes for all candidates, each candidate adding its
     2x2 bilinear forms weighted by q^delta of the new SNP
@@ -490,6 +526,6 @@ def evaluate_candidates(bits, allele, fA, fB, g_cand, geno_sel, a1, a2,
     with scope:
         out = [_evaluate_one(bits[k], allele[k], fA[k], fB[k], g_cand[k],
                              geno_sel[k], a1, a2, is_oob[k], B[k], n_alleles,
-                             per_sample)
+                             per_sample, detail)
                for k in range(fA.shape[0])]
     return tuple(torch.stack(x) for x in zip(*out))

@@ -113,8 +113,10 @@ def load() -> ctypes.CDLL:
     lib.hibag_em_packed_smem.restype = ctypes.c_longlong
     lib.hibag_eval_cand.argtypes = [p] * 16 + [i] * 8 + [p]
     lib.hibag_eval_cand.restype = i
-    lib.hibag_post_scores.argtypes = [p] * 10 + [i] * 4 + [p]
+    lib.hibag_post_scores.argtypes = [p] * 11 + [i] * 5 + [p]
     lib.hibag_post_scores.restype = i
+    lib.hibag_post_scores_smem.argtypes = [i] * 3
+    lib.hibag_post_scores_smem.restype = ctypes.c_longlong
     lib.hibag_post_scores_scratch.argtypes = [i]
     lib.hibag_post_scores_scratch.restype = ctypes.c_longlong
     lib.hibag_eval_smem.argtypes = [i] * 4

@@ -30,9 +30,9 @@ from .ens_acc import (PackedHaplotypes, check_inputs, pack_haplotypes,
 from .scoring import posterior_scores
 from .train_step import pen_table
 
-#: most haplotype slots per classifier the kernel takes (shared memory: 26
-#: bytes a slot); the port's trainer builds at most as many
-MAX_H = 4096
+#: most haplotype slots per classifier the kernel takes (a cell's pair count
+#: is an int32: H^2 < 2^31), as many as the port's trainer can build
+MAX_H = 46340
 #: most alleles the kernel takes (S is written to device memory; this bounds
 #: one (classifier, sample)'s output at 4 MiB; above 180 alleles the cells'
 #: running minima take a device scratch of A(A+1) bytes a (classifier,
@@ -43,6 +43,12 @@ MAX_C = 65535
 #: the plain version scores samples in runs whose [n, H, H] intermediates
 #: hold at most this many elements each (256 MiB in float32)
 PLAIN_ELEMS = 1 << 26
+#: shared memory the kernel may ask for (of the 227 KB a block can have on
+#: the H100, less its static scratch); the slot records take 24 bytes a slot
+SMEM_BYTES = 224 * 1024
+#: most device memory for the slot records where they do not fit in shared
+#: memory: blocks then take several samples each (`scores_plan`)
+RECORD_BYTES = 256 * 1024 ** 2
 
 #: kernel launches made by `ensemble_scores`; never the plain version's
 LAUNCHES = 0
@@ -66,10 +72,34 @@ def _check(hap: PackedHaplotypes, g, n_alleles):
     check_inputs(hap, g)
 
 
-def ensemble_scores(hap: PackedHaplotypes, g: torch.Tensor, n_alleles: int):
+def record_bytes(H: int) -> int:
+    """Bytes of one block's slot records in device memory: uint4 [H], then
+    uint2 [H] padded to whole 16-byte words."""
+    return 16 * (H + -(-H // 2))
+
+
+def scores_plan(H, A, C, N, smem_bytes, budget=SMEM_BYTES,
+                record_budget=RECORD_BYTES):
+    """How the kernel scores N samples of C classifiers of H slots: (shared,
+    NB, scratch bytes). With `shared` (the slot records and the rest fit
+    `budget` bytes; `smem_bytes(H, A, records)` is the kernel's shared
+    memory) a block takes one (classifier, sample), NB = N and no record
+    scratch. Else the records go to device memory, NB blocks a classifier
+    take samples n, n + NB, ..., as many blocks as `record_budget` bytes
+    hold records for (at least one a classifier). Both routes give bitwise
+    the same results."""
+    if smem_bytes(H, A, 1) <= budget:
+        return True, N, 0
+    NB = max(1, min(N, record_budget // max(1, C * record_bytes(H))))
+    return False, NB, C * NB * record_bytes(H)
+
+
+def ensemble_scores(hap: PackedHaplotypes, g: torch.Tensor, n_alleles: int,
+                    *, smem_budget=SMEM_BYTES, record_budget=RECORD_BYTES):
     """(S [C, N, A, A], dmin [C, N], total [C, N]) for genotype codes g int8
     [C, N, 128] gathered to each classifier's SNP slots (3 = missing or
-    padded)."""
+    padded). `smem_budget` and `record_budget` choose the kernel's route
+    (`scores_plan`); every route gives bitwise the same results."""
     global LAUNCHES
     _check(hap, g, n_alleles)
     if g.device.type == "cpu":
@@ -89,13 +119,19 @@ def ensemble_scores(hap: PackedHaplotypes, g: torch.Tensor, n_alleles: int):
     per = lib.hibag_post_scores_scratch(A)
     scratch = (torch.empty(C * N * per, dtype=torch.uint8, device=dev)
                if per else None)
+    shared, NB, nrec = scores_plan(hap.n_slots, A, C, N,
+                                   lib.hibag_post_scores_smem, smem_budget,
+                                   record_budget)
+    records = (None if shared else
+               torch.empty(nrec // 4, dtype=torch.int32, device=dev))
+    ptr = lambda x: None if x is None else x.data_ptr()
     with torch.cuda.device(dev):
         err = lib.hibag_post_scores(
             hap.hb.data_ptr(), hap.freq.data_ptr(), hap.allele.data_ptr(),
             hap.nh.data_ptr(), g.data_ptr(), tab.data_ptr(), S.data_ptr(),
-            dmin.data_ptr(), total.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), C, hap.n_slots,
-            N, A, torch.cuda.current_stream(dev).cuda_stream)
+            dmin.data_ptr(), total.data_ptr(), ptr(scratch), ptr(records), C,
+            hap.n_slots, N, A, NB,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         msg = lib.hibag_cuda_error_string(err).decode()
         raise RuntimeError(f"scoring kernel launch failed: {msg} ({err})")

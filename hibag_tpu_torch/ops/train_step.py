@@ -22,21 +22,30 @@ import torch
 from ..constants import LOG_MIN_RARE_FREQ, MAXNUM_SNP
 from ..models import em
 
-#: the EM kernel's limits: H a multiple of EM_H_MULTIPLE up to EM_MAX_H,
-#: and 1..MAX_C candidates
-EM_MAX_H = 4096
+#: the EM kernels' limits: H a multiple of EM_H_MULTIPLE up to EM_MAX_H
+#: (their pair and row lists hold slot indices in 16 bits), and 1..MAX_C
+#: candidates; past that, the mask's device memory (models/em.py's tiers)
+EM_MAX_H = 65536
 EM_H_MULTIPLE = 32
-#: the evaluation kernel's limits: haplotype slots, alleles
-EVAL_MAX_H = 4096
-EVAL_MAX_A = 128
+#: the evaluation kernel's limits: haplotype slots (the triangle of slot
+#: pairs is indexed in int32, from products H (H + 1) < 2^31) and alleles
+#: (the scoring kernel's post_scores.MAX_A, so the scan engine scores every
+#: model the trainer makes); past that, the device scratch
+#: (EVAL_SCRATCH_BYTES)
+EVAL_MAX_H = 46340
+EVAL_MAX_A = 1024
 #: most candidates either kernel takes
 MAX_C = 64
 #: shared memory the evaluation kernel may ask for (of the 227 KB a block
 #: can have on the H100, less its static scratch)
 EVAL_SMEM_BYTES = 224 * 1024
-#: most device scratch the evaluation kernel's device-memory plan takes
-#: (it holds one classifier's run at least)
+#: most device scratch the evaluation kernel's device-memory plans take
+#: (they hold one classifier's run at least; one block's scratch must fit)
 EVAL_SCRATCH_BYTES = 1024 ** 3
+#: the evaluation kernel's plans (csrc/eval_cand.cu kPlan*): everything in
+#: shared memory; frequencies, row scratch and cell grids in device memory;
+#: the slot records there too
+EVAL_PLAN_SHARED, EVAL_PLAN_DEVICE, EVAL_PLAN_RECORDS = 1, 0, -1
 #: sample groups of the EM kernels: a block owns a run of samples, the
 #: number of runs depends on S only
 EM_MAX_GROUPS = 64
@@ -300,30 +309,39 @@ def eval_layout(bits, allele, fA, fB, n_alleles):
 
 def eval_plan(H, n_alleles, C, K, N, smem_bytes, budget=EVAL_SMEM_BYTES):
     """How the evaluation kernel runs a batch of K classifiers of H slots
-    over N samples: (M, shared, S) with M = H rounded up to 4 (the slots a
-    block makes room for), whether the candidates' frequencies, the row
-    scratch and the cell grids sit in shared memory (they do when they fit
-    `budget` bytes; `smem_bytes(M, A, C, shared)` is the kernel's shared
-    memory), and S the samples a block takes: about 8 blocks for each of
-    the H100's 132 SMs, more samples a block where the device scratch would
-    pass EVAL_SCRATCH_BYTES. Raises when not even the slot records fit."""
+    over N samples: (M, plan, S) with M = H rounded up to 4 (the slots a
+    block makes room for); the plan, the first of EVAL_PLAN_SHARED (the
+    candidates' frequencies, the row scratch, the cell grids and the slot
+    records in shared memory), EVAL_PLAN_DEVICE (the records alone there)
+    and EVAL_PLAN_RECORDS (none of them) whose shared memory
+    `smem_bytes(M, A, C, plan)` fits `budget` bytes; and S the samples a
+    block takes: about 8 blocks for each of the H100's 132 SMs, more
+    samples a block where the device scratch would pass
+    EVAL_SCRATCH_BYTES. All plans give bitwise the same results. Raises
+    when one block's device scratch alone passes EVAL_SCRATCH_BYTES."""
     M = max(4, -(-H // 4) * 4)
+    A = n_alleles
     S = max(1, -(-K * N // (8 * 132)))
-    if smem_bytes(M, n_alleles, C, 1) <= budget:
-        return M, True, S
-    if smem_bytes(M, n_alleles, C, 0) > budget:
-        raise ValueError(f"{H} haplotype slots do not fit the evaluation "
-                         f"kernel's shared memory ({budget} bytes)")
-    runs = max(1, EVAL_SCRATCH_BYTES // (K * eval_scratch_bytes(M, n_alleles,
-                                                                C)))
-    return M, False, max(S, -(-N // runs))
+    if smem_bytes(M, A, C, EVAL_PLAN_SHARED) <= budget:
+        return M, EVAL_PLAN_SHARED, S
+    plan = (EVAL_PLAN_DEVICE if smem_bytes(M, A, C, EVAL_PLAN_DEVICE)
+            <= budget else EVAL_PLAN_RECORDS)
+    per = eval_scratch_bytes(M, A, C, plan)
+    if per > EVAL_SCRATCH_BYTES:
+        raise ValueError(
+            f"{H} haplotype slots and {A} alleles at {C} candidates need "
+            f"{per} bytes of device scratch a block, more than the "
+            f"evaluation kernel's EVAL_SCRATCH_BYTES={EVAL_SCRATCH_BYTES}")
+    runs = max(1, EVAL_SCRATCH_BYTES // (K * per))
+    return M, plan, max(S, -(-N // runs))
 
 
-def eval_scratch_bytes(M, n_alleles, C):
+def eval_scratch_bytes(M, n_alleles, C, plan=EVAL_PLAN_DEVICE):
     """Device scratch of one block of the evaluation kernel's device-memory
-    plan: the [slot][candidate] row sums and the cell grids, C padded to
-    4."""
-    return 4 * (-(-C // 4) * 4) * (M + n_alleles * (n_alleles + 1) // 2)
+    plans: the [slot][candidate] row sums and the cell grids, C padded to
+    4, and under EVAL_PLAN_RECORDS the slot records (24 bytes a slot)."""
+    return (4 * (-(-C // 4) * 4) * (M + n_alleles * (n_alleles + 1) // 2)
+            + (24 * M if plan == EVAL_PLAN_RECORDS else 0))
 
 
 def evaluate_candidates_kernel(bits, allele, fA, fB, g_cand, geno_sel, a1,
@@ -335,7 +353,7 @@ def evaluate_candidates_kernel(bits, allele, fA, fB, g_cand, geno_sel, a1,
     g_cand int8 [K, C, N], geno_sel int8 [K, N, 128], a1/a2 int32 [N],
     is_oob bool [K, N], B float32 [K, N]) -> (acc int32 [K, C], ll float32
     [K, C]). `smem_budget` caps the kernel's shared memory (`eval_plan`);
-    both plans give bitwise the same results."""
+    every plan gives bitwise the same results."""
     _check_eval(bits, allele, fA, fB, g_cand, geno_sel, a1, a2, is_oob, B,
                 n_alleles)
     if fA.device.type == "cpu":
@@ -353,13 +371,12 @@ def evaluate_candidates_kernel(bits, allele, fA, fB, g_cand, geno_sel, a1,
     if N == 0:
         return acc.zero_(), ll.zero_()
     lib = _build.load()
-    M, shared, S = eval_plan(H, A, C, K, N, lib.hibag_eval_smem,
-                             smem_budget)
+    M, plan, S = eval_plan(H, A, C, K, N, lib.hibag_eval_smem, smem_budget)
     hb, al, fq, nok = eval_layout(bits, allele, fA, fB, A)
     gscratch = None
-    if not shared:
+    if plan != EVAL_PLAN_SHARED:
         gscratch = torch.empty(
-            K * -(-N // S) * eval_scratch_bytes(M, A, C) // 4,
+            K * -(-N // S) * eval_scratch_bytes(M, A, C, plan) // 4,
             dtype=torch.float32, device=dev)
     oob = is_oob.to(torch.uint8)
     accp = torch.empty((K, C, N), dtype=torch.int32, device=dev)
@@ -372,7 +389,7 @@ def evaluate_candidates_kernel(bits, allele, fA, fB, g_cand, geno_sel, a1,
             a2.data_ptr(), oob.data_ptr(), B.data_ptr(), tab.data_ptr(),
             accp.data_ptr(), llp.data_ptr(),
             gscratch.data_ptr() if gscratch is not None else None,
-            acc.data_ptr(), ll.data_ptr(), K, H, N, C, A, M, S, int(shared),
+            acc.data_ptr(), ll.data_ptr(), K, H, N, C, A, M, S, plan,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_if_failed(lib, err, "evaluation")
     LAUNCHES["evaluate_candidates_kernel"] += 1

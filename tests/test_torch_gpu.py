@@ -479,34 +479,62 @@ def test_out_of_bag_on_the_card(cuda, host_panel):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("H,A,limit", [(ts.EVAL_MAX_H + 64, 14, "MAX_H"),
-                                       (64, ts.EVAL_MAX_A + 2, "EVAL_MAX_A")])
-def test_host_step_beyond_the_kernels_raises(cuda, H, A, limit):
-    """The host trainer's device step above the kernels' haplotype or
-    allele limit raises the wrappers' ValueError to the caller; nothing
-    falls back to the plain versions."""
+@pytest.mark.parametrize("H,A", [(4160, 14), (64, 130), (10016, 14),
+                                 (64, 320)])
+def test_host_step_past_the_old_limits(cuda, H, A):
+    """The host trainer's device step past 4,096 slots or 128 alleles (the
+    kernels' limits before they were lifted) launches the EM and evaluation
+    kernels, and each agrees with its plain version on the same CUDA
+    tensors (chip_smoke._check_host_step: EM at rtol 1e-4, counts exact,
+    -2logLik at rtol 1e-4)."""
+    from hibag_tpu_torch.models.em import F32_RELTOL
     from hibag_tpu_torch.models.train_fused import grow_step
 
     rng = np.random.default_rng(7)
     K, C, S = 1, 2, 8
-    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
-    bits = np.zeros((K, H, 128), np.float32)
-    bits[:, :, :12] = rng.integers(0, 2, (K, H, 12))
-    freq = np.full((K, H), 1.0 / H, np.float32)
-    allele = np.sort(rng.integers(0, A, (K, H))).astype(np.int32)
-    geno_sel = np.full((K, S, 128), 3, np.int8)
-    geno_sel[:, :, :12] = rng.integers(0, 3, (K, S, 12))
-    a12 = np.sort(rng.choice(allele[0], (2, S)), axis=0).astype(np.int32)
-    B = np.ones((K, S), np.float32)
-    B[:, 0] = 0
+    c = chip_smoke._train_case(rng, K, C, H, A, S, cuda, masks=False)
+    args = (c["bits"], c["freq"], c["allele"], c["geno"], c["B"], c["oob"],
+            c["gc"], torch.full((K, C), 0.5, device=cuda), c["a1"], c["a2"],
+            A, 1e-3, float(S), None, "cuda")
     before = dict(ts.LAUNCHES)
-    with pytest.raises(ValueError, match=limit):
-        grow_step(t(bits), t(freq), t(allele), t(geno_sel), t(B), t(B == 0),
-                  t(rng.integers(0, 3, (K, C, S)).astype(np.int8)),
-                  t(np.full((K, C), 0.5, np.float32)), t(a12[0]), t(a12[1]),
-                  A, 1e-3, float(S), None, "cuda")
-    assert ts.LAUNCHES["evaluate_candidates_kernel"] == \
-        before["evaluate_candidates_kernel"]
+    grow_step(*args, reltol=F32_RELTOL)
+    assert (ts.LAUNCHES["em_estep"] + ts.LAUNCHES["em_estep_packed"]
+            > before["em_estep"] + before["em_estep_packed"])
+    assert (ts.LAUNCHES["evaluate_candidates_kernel"]
+            > before["evaluate_candidates_kernel"])
+    chip_smoke._check_host_step((args, {"reltol": F32_RELTOL}),
+                                f"H={H} A={A}")
+
+
+@pytest.mark.gpu
+def test_wrappers_raise_past_the_real_limits_on_the_card(cuda):
+    """Past the real limits each wrapper raises ValueError on CUDA tensors
+    and launches nothing: EM past EM_MAX_H slots, the evaluation past
+    EVAL_MAX_H slots or EVAL_MAX_A alleles, scoring past MAX_H slots."""
+    before = (dict(ts.LAUNCHES), post_scores.LAUNCHES)
+    t = lambda *shape: torch.rand(*shape, device=cuda)
+    z8 = lambda *shape: torch.zeros(*shape, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="EM_MAX_H"):
+        fA = t(1, 2, ts.EM_MAX_H + 32)
+        ts.em_estep(fA, fA, z8(1, 1, 32, 32), z8(1, 2, 1), t(1, 1), 1.0)
+    N, L = 2, 128
+    common = lambda H, A: (
+        t(1, H, L).round(), torch.zeros(1, H, dtype=torch.int32, device=cuda),
+        t(1, 1, H), t(1, 1, H), z8(1, 1, N), z8(1, N, L),
+        torch.zeros(N, dtype=torch.int32, device=cuda),
+        torch.zeros(N, dtype=torch.int32, device=cuda),
+        torch.zeros(1, N, dtype=torch.bool, device=cuda), t(1, N), A)
+    with pytest.raises(ValueError, match="EVAL_MAX_H"):
+        ts.evaluate_candidates_kernel(*common(ts.EVAL_MAX_H + 4, 14))
+    with pytest.raises(ValueError, match="EVAL_MAX_A"):
+        ts.evaluate_candidates_kernel(*common(64, ts.EVAL_MAX_A + 1))
+    big = post_scores.MAX_H + 1
+    hap = ens_acc.pack_haplotypes(np.zeros((1, big, L), np.uint8),
+                                  np.full((1, big), 1.0 / big),
+                                  np.zeros((1, big), int), 4, cuda)
+    with pytest.raises(ValueError, match="MAX_H"):
+        post_scores.ensemble_scores(hap, z8(1, N, L), 4)
+    assert (dict(ts.LAUNCHES), post_scores.LAUNCHES) == before
 
 
 @pytest.mark.gpu

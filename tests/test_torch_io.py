@@ -853,11 +853,11 @@ def test_switch_strand_and_combine_match(match_type):
 
 
 def test_alias_surface_matches():
-    """Every hla* name of hibag_tpu but hlaConvSequence (seq is not
-    ported) exists in the port; the genotype helpers agree."""
+    """Every hla* name of hibag_tpu exists in the port (hlaConvSequence,
+    the last, came with seq/aa.py); the genotype helpers agree."""
     names = [n for n in dir(hibag_tpu) if n.startswith("hla")]
     missing = [n for n in names if not hasattr(hibag_tpu_torch, n)]
-    assert missing == ["hlaConvSequence"]
+    assert missing == []
     geno, _ = _geno(13)
     jg = _as("hibag_tpu", geno)
     for fn in ("hlaGenoAFreq", "hlaGenoMFreq", "hlaGenoMRate",

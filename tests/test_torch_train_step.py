@@ -171,14 +171,21 @@ def test_eval_layout_keeps_each_alleles_slots():
             assert got == want
 
 
+def _eval_smem(M, A, C, plan):
+    """The evaluation kernel's shared memory (csrc/eval_cand.cu Layout), by
+    its terms: table and penalties, allele offsets, the slot records (plans
+    1 and 0), the frequencies, row scratch and cell grids (plan 1)."""
+    Cp = -(-C // 4) * 4
+    return (1040 + 12 * Cp + 16 * ((A + 4) // 4) + 24 * M * (plan >= 0)
+            + (plan == 1) * 4 * Cp * (3 * M + A * (A + 1) // 2))
+
+
 def test_eval_plan_prefers_shared_memory():
     """eval_plan keeps the frequencies, scratch and grids in shared memory
     when they fit the budget, else goes to device memory with its scratch
-    capped, and raises when not even the slot records fit."""
-    def smem(M, A, C, shared):       # the kernel's layout, by its terms
-        Cp = -(-C // 4) * 4
-        return (1040 + 12 * Cp + 16 * ((A + 4) // 4) + 24 * M
-                + shared * 4 * Cp * (3 * M + A * (A + 1) // 2))
+    capped, the slot records too where they do not fit, and raises when one
+    block's device scratch would pass EVAL_SCRATCH_BYTES."""
+    smem = _eval_smem
     assert ts.eval_plan(256, 14, 17, 8, 1024, smem) == (256, True, 8)
     assert ts.eval_plan(254, 14, 17, 25, 64, smem) == (256, True, 2)
     assert ts.eval_plan(1024, 14, 17, 8, 1024, smem) == (1024, False, 8)
@@ -192,8 +199,30 @@ def test_eval_plan_prefers_shared_memory():
     assert (M, shared, S) == (4096, False, 25)
     assert 8 * -(-1024 // S) * per <= ts.EVAL_SCRATCH_BYTES
     assert 8 * -(-1024 // (S - 1)) * per > ts.EVAL_SCRATCH_BYTES
-    with pytest.raises(ValueError, match="shared memory"):
-        ts.eval_plan(10000, 14, 17, 1, 1, smem)
+    assert ts.eval_plan(10000, 14, 17, 1, 1, smem) == (
+        10000, ts.EVAL_PLAN_RECORDS, 1)
+    with pytest.raises(ValueError, match="EVAL_SCRATCH_BYTES"):
+        ts.eval_plan(64, 3000, 64, 1, 1, smem)
+
+
+@pytest.mark.parametrize("H,A,plan,per", [
+    (4160, 130, 0, 4 * 20 * (4160 + 8515)),
+    (4160, 320, 0, 4 * 20 * (4160 + 51360)),
+    (10016, 130, -1, 4 * 20 * (10016 + 8515) + 24 * 10016),
+    (10016, 320, -1, 4 * 20 * (10016 + 51360) + 24 * 10016),
+    (64, 130, 0, 4 * 20 * (64 + 8515)),
+    (512, 320, 0, 4 * 20 * (512 + 51360))])
+def test_eval_plan_past_the_old_limits(H, A, plan, per):
+    """Past 4,096 slots or 128 alleles the cell grids leave shared memory
+    (plan 0), and past about 9,000 slots the slot records too (plan -1);
+    the scratch of a block is its row sums and grids, with the records
+    under plan -1. K=4, C=17 (padded to 20), N=1,024."""
+    M, got, S = ts.eval_plan(H, A, 17, 4, 1024, _eval_smem)
+    assert (M, got) == (H, plan)
+    assert ts.eval_scratch_bytes(M, A, 17, got) == per
+    runs = max(1, ts.EVAL_SCRATCH_BYTES // (4 * per))
+    assert S == max(-(-4 * 1024 // (8 * 132)), -(-1024 // runs))
+    assert 4 * -(-1024 // S) * per <= max(ts.EVAL_SCRATCH_BYTES, 4 * per)
 
 
 def test_em_packed_plan_depends_on_samples_only():
@@ -221,6 +250,15 @@ def test_em_packed_plan_depends_on_samples_only():
         assert R >= min(S, ts.EM_PACKED_WARPS)
     with pytest.raises(ValueError, match="shared memory"):
         plan(4096, 64, 64, pair_list=5000)
+    # past 4,096 slots: the frequencies and accumulator in device memory,
+    # the row bitmasks and lists sized from H; at 65,536 slots and C=64 the
+    # lists no longer fit
+    assert plan(4160, 17, 1000) == (63, 16, False)
+    assert plan(10016, 64, 8) == (1, 8, False)
+    assert plan(10016, 1, 8) == (1, 8, True)     # 160 KB at C=1
+    assert smem(10016, 64, 64, 0) == 59288
+    with pytest.raises(ValueError, match="shared memory"):
+        plan(65536, 64, 8)
 
 
 def test_pack_bits_layout():
@@ -249,8 +287,10 @@ def test_em_wrapper_raises_on_what_the_kernel_does_not_take(packed):
         fn(*_em_args(C=ts.MAX_C + 1, packed=packed))
     with pytest.raises(ValueError, match="EM_H_MULTIPLE"):
         fn(*_em_args(H=48, packed=packed))
+    past = _em_args(H=32, S=1, packed=packed)   # H is checked first
+    past[:2] = [torch.rand(1, 3, ts.EM_MAX_H + 32)] * 2
     with pytest.raises(ValueError, match="EM_MAX_H"):
-        fn(*_em_args(H=ts.EM_MAX_H + 32, S=1, packed=packed))
+        fn(*past)
     bad = _em_args(packed=packed)
     bad[2] = bad[2].to(torch.int16)
     with pytest.raises(ValueError, match="mask"):
@@ -281,9 +321,10 @@ def test_eval_wrapper_raises_on_what_the_kernel_does_not_take():
         ts.evaluate_candidates_kernel(*_eval_args(C=ts.MAX_C + 1))
     with pytest.raises(ValueError, match="EVAL_MAX_A"):
         ts.evaluate_candidates_kernel(*_eval_args(A=ts.EVAL_MAX_A + 1))
+    past = _eval_args(H=8, N=1, C=1)            # H is checked first
+    past[2:4] = [torch.rand(1, 1, ts.EVAL_MAX_H + 1)] * 2
     with pytest.raises(ValueError, match="EVAL_MAX_H"):
-        ts.evaluate_candidates_kernel(*_eval_args(H=ts.EVAL_MAX_H + 1, N=1,
-                                                  C=1))
+        ts.evaluate_candidates_kernel(*past)
     bad = _eval_args()
     bad[6] = bad[6].long()
     with pytest.raises(ValueError, match="a1 and a2"):
