@@ -157,7 +157,33 @@ Phases, one line each (any failure raises and the exit code is non-zero):
                at hcap=4,160 (on_overflow="freeze"): every step's kernels at
                H=4,160, of which a few hundred slots are live (the rest
                padding; the live count is printed).
-`python3 chip_smoke.py --limits` runs phases 1, 2 and 10 alone.
+  11. mesh  — the classifiers split over mesh A = ["cuda:0", "cuda:0"]
+               (two shards on the one card), on earlier phases' artifacts:
+               (a) predict(devices=mesh A, with_prob=True) of phase 4's model
+               and cohort twice (bitwise equal; calls equal phase 4's;
+               postprob and matching at rtol 2e-4, atol 1e-6 of one card's;
+               ens_acc launches 2 x the blocks; the second timed), and of
+               phase 7's model (scoring-kernel launches, one per shard's
+               chunk and block, no ens_acc; calls equal phase 7's outside
+               the tie margin); (b) train_parallel(mesh=mesh A) host (phase
+               8's arguments) and fused (phase 5's): SNPs, haplotypes,
+               bootstraps and OOB equal the one-card runs', frequencies at
+               rtol 1e-5, every shard step in a shard's thread with its
+               kernels; (c) the evaluation, int8 EM and packed EM kernels at
+               K=8, S=1,024, H=256, C=17, A=14 bitwise equal to two launches
+               of K=4; (d) one pair of `chip_smoke.py --dist-worker`
+               processes on the card over gloo, each running in turn
+               train_distributed (phase 5's arguments: equal phase 5's
+               classifiers), train_dynamic (phase 6's panel and mask budget,
+               K=8, two per job, worker 1 joining once worker 0 has
+               claimed a job: every claim taken once, each worker claiming
+               jobs and launching the packed EM, equal a one-process run)
+               and predict_distributed of phase 4's model (calls equal phase
+               4's, prob at rtol 2e-4). At most MESH_BUDGET_S seconds; its
+               speeds are two shards on one card, not a multi-GPU speed.
+`python3 chip_smoke.py --limits` runs phases 1, 2 and 10 alone, and
+`python3 chip_smoke.py --mesh` phases 1, 2 and 11 (with phase 11's inputs
+made anew).
 The line before the last is the kernels' JSON record (each kernel's
 launches on its phase's timed main-path run, with the counts set to 0 just
 before it; its time and its plain version's; its bound from this run's
@@ -170,6 +196,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -1015,21 +1042,47 @@ def _freq_sums(model, label):
                                  f"{c.hap_freq.sum()}")
 
 
-def phase_train(card):
-    """Phase 5; returns the main path's kernel launches."""
+#: phase 5's train_parallel arguments (the mid-scale fused cell)
+FUSED_KW = dict(n_classifiers=8, batch=8, seed=100, verbose=False,
+                with_matching=False, mode="fused", hcap=256, max_steps=192,
+                on_overflow="freeze", device="cuda")
+#: phase 6's (the headline fused cell: int8 mask 64*128*128 B = 1 MiB >
+#: 256 KiB >= packed 128 KiB)
+PACKED_KW = dict(n_classifiers=25, batch=25, seed=100, verbose=False,
+                 with_matching=False, mode="fused", hcap=128, max_steps=192,
+                 on_overflow="freeze", device="cuda", mask_budget=256 * 1024)
+#: phase 8's (the host mid-scale cell)
+HOST_KW = dict(n_classifiers=HOST_K, batch=HOST_K, seed=100, mtry=17,
+               verbose=False, with_matching=False, mode="host",
+               device="cuda")
+
+
+def _mid_panel():
+    """Phases 5 and 8's panel: ((table, geno), (held-out table, geno))."""
+    from hibag_tpu_torch.utils.synthetic import (PANEL_RECOMBINATION,
+                                                 synthetic_panel)
+    return synthetic_panel(SEED, 1000, 266, 14, n_held_out=500,
+                           recombination=PANEL_RECOMBINATION)
+
+
+def _headline_panel():
+    """Phase 6's panel (and phase 8's train()): (table, geno)."""
+    from hibag_tpu_torch.utils.synthetic import (PANEL_RECOMBINATION,
+                                                 synthetic_panel)
+    return synthetic_panel(SEED + 2, 60, 1000, 14,
+                           recombination=PANEL_RECOMBINATION)[0]
+
+
+def phase_train(card, keep=None):
+    """Phase 5; returns the main path's kernel launches. Puts the panel and
+    its timed run's model in `keep`."""
     from hibag_tpu_torch import predict, train_parallel
     from hibag_tpu_torch.models import train_fused
     from hibag_tpu_torch.ops import ens_acc
     from hibag_tpu_torch.ops import train_step as ts
-    from hibag_tpu_torch.utils.synthetic import (PANEL_RECOMBINATION,
-                                                 synthetic_panel)
 
-    (table, geno), (htable, hgeno) = synthetic_panel(
-        SEED, 1000, 266, 14, n_held_out=500,
-        recombination=PANEL_RECOMBINATION)
-    kw = dict(n_classifiers=8, batch=8, seed=100, verbose=False,
-              with_matching=False, mode="fused", hcap=256, max_steps=192,
-              on_overflow="freeze", device="cuda")
+    (table, geno), (htable, hgeno) = _mid_panel()
+    kw = FUSED_KW
     first = train_parallel(table, geno, **kw)
     torch.cuda.synchronize()
     steps, reseats = [0], [0]
@@ -1088,22 +1141,22 @@ def phase_train(card):
           f"(500 samples); SNPs {n_snp}, haplotypes {n_hap}, freeze "
           f"re-seats {reseats[0]}; same SNP "
           f"sequence as engine='torch' on the card: {same_seq}/8 | {card}")
+    if keep is not None:
+        keep.update(mid_panel=(table, geno), fused_model=model,
+                    fused_rate=8 / elapsed)
     return launches, 8 / elapsed
 
 
-def phase_packed(card):
-    """Phase 6; returns the packed kernel's launches."""
+def phase_packed(card, keep=None):
+    """Phase 6; returns the packed kernel's launches. Puts the panel in
+    `keep`."""
     from hibag_tpu_torch import train_parallel
     from hibag_tpu_torch.ops import train_step as ts
-    from hibag_tpu_torch.utils.synthetic import (PANEL_RECOMBINATION,
-                                                 synthetic_panel)
 
-    (table, geno), _ = synthetic_panel(SEED + 2, 60, 1000, 14,
-                                       recombination=PANEL_RECOMBINATION)
-    # int8 mask 64*128*128 B = 1 MiB > 256 KiB >= packed 128 KiB
-    kw = dict(n_classifiers=25, batch=25, seed=100, verbose=False,
-              with_matching=False, mode="fused", hcap=128, max_steps=192,
-              on_overflow="freeze", device="cuda", mask_budget=256 * 1024)
+    table, geno = _headline_panel()
+    kw = PACKED_KW
+    if keep is not None:
+        keep.update(headline_panel=(table, geno))
     train_parallel(table, geno, **kw)
     torch.cuda.synchronize()
     for k in ts.LAUNCHES:
@@ -1163,9 +1216,10 @@ def _check_host_step(first, label):
     return err_em, err_ev
 
 
-def phase_host(card, fused_rate):
+def phase_host(card, fused_rate, keep=None):
     """Phase 8: the host trainer and the post-training surface on the card;
-    returns nothing (the kernels' line keeps phases 4-7's counts)."""
+    returns nothing (the kernels' line keeps phases 4-7's counts). Puts the
+    timed run's model and rate in `keep`."""
     import collections
 
     from hibag_tpu_torch import (AttrBagModel, out_of_bag, predict, publish,
@@ -1174,16 +1228,10 @@ def phase_host(card, fused_rate):
     from hibag_tpu_torch.models import train as train_mod
     from hibag_tpu_torch.ops import ens_acc
     from hibag_tpu_torch.ops import train_step as ts
-    from hibag_tpu_torch.utils.synthetic import (PANEL_RECOMBINATION,
-                                                 synthetic_panel)
 
     # (a) train_parallel(mode="host") on phase 5's panel
-    (table, geno), (htable, hgeno) = synthetic_panel(
-        SEED, 1000, 266, 14, n_held_out=500,
-        recombination=PANEL_RECOMBINATION)
-    kw = dict(n_classifiers=HOST_K, batch=HOST_K, seed=100, mtry=17,
-              verbose=False, with_matching=False, mode="host",
-              device="cuda")
+    (table, geno), (htable, hgeno) = _mid_panel()
+    kw = HOST_KW
     first_model = train_parallel(table, geno, **kw)
     torch.cuda.synchronize()
     step, tier = train_mod.grow_step, em.mask_tier
@@ -1222,6 +1270,8 @@ def phase_host(card, fused_rate):
     oob = float(np.mean([c.oob_accuracy for c in model.classifiers]))
     if oob < 0.9:
         raise AssertionError(f"host: mean OOB accuracy {oob:.4f} < 0.9")
+    if keep is not None:
+        keep.update(host_model=model, host_rate=HOST_K / elapsed)
     ens_acc.LAUNCHES = 0
     res = predict(model, hgeno, device="cuda")
     torch.cuda.synchronize()
@@ -1247,8 +1297,7 @@ def phase_host(card, fused_rate):
           f"{err_ev:.3e} | {card}")
 
     # (b) train() through grow_classifier on phase 6's panel
-    (t6, g6), _ = synthetic_panel(SEED + 2, 60, 1000, 14,
-                                  recombination=PANEL_RECOMBINATION)
+    t6, g6 = _headline_panel()
     for k in ts.LAUNCHES:
         ts.LAUNCHES[k] = 0
     t0 = time.perf_counter()
@@ -1421,26 +1470,48 @@ def phase_wide_kernels(dev):
     return err
 
 
-def phase_wide(dev, card):
+def _through_npz(built):
+    from hibag_tpu_torch import AttrBagModel
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "model.npz")
+        built.save(path)
+        return AttrBagModel.load(path)
+
+
+def _slice_case():
+    """Phase 4's model (through .npz) and cohort: (model, geno, true1,
+    true2)."""
+    from hibag_tpu_torch.utils.synthetic import (synthetic_cohort,
+                                                 synthetic_model)
+    built, pool = synthetic_model(SEED, n_classifiers=100, n_snp=1000,
+                                  n_alleles=48)
+    model = _through_npz(built)
+    return (model,) + tuple(synthetic_cohort(model, pool, N_SLICE, SEED + 1))
+
+
+def _wide_case():
+    """Phase 7's 160-allele model (through .npz) and cohort."""
+    from hibag_tpu_torch.utils.synthetic import (synthetic_cohort,
+                                                 synthetic_model)
+    built, pool = synthetic_model(SEED, n_classifiers=100, n_snp=1000,
+                                  n_alleles=160, hap_range=(600, 1600),
+                                  max_variants=20, mutation=0.1)
+    model = _through_npz(built)
+    return (model,) + tuple(synthetic_cohort(model, pool, N_WIDE, SEED + 8))
+
+
+def phase_wide(dev, card, keep=None):
     """Phase 7; returns the scoring kernel's record at the scan engine's
-    chunk shape, with its launches on the timed predict() run."""
-    from hibag_tpu_torch import AttrBagModel, predict
+    chunk shape, with its launches on the timed predict() run. Puts the
+    model, cohort and timed run's result in `keep`."""
+    from hibag_tpu_torch import predict
     from hibag_tpu_torch.data.geno import align_to_model
     from hibag_tpu_torch.models import predict as predict_mod
     from hibag_tpu_torch.ops import ens_acc
     from hibag_tpu_torch.ops import post_scores as ps
-    from hibag_tpu_torch.utils.synthetic import (synthetic_cohort,
-                                                 synthetic_model)
 
     err = phase_wide_kernels(dev)
-    built, pool = synthetic_model(SEED, n_classifiers=100, n_snp=1000,
-                                  n_alleles=160, hap_range=(600, 1600),
-                                  max_variants=20, mutation=0.1)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "wide.npz")
-        built.save(path)
-        model = AttrBagModel.load(path)
-    geno, true1, true2 = synthetic_cohort(model, pool, N_WIDE, SEED + 8)
+    model, geno, true1, true2 = _wide_case()
     A = model.n_alleles
     nh = np.array([c.n_haplo for c in model.classifiers])
     if ens_acc.fits(int(nh.max()), A):
@@ -1519,6 +1590,8 @@ def phase_wide(dev, card):
           f"bitwise equal; accuracy "
           f"{acc:.4f}; f64 calls equal on {int(clear.sum())}/{N_WIDE_F64} "
           f"clear samples | {card}")
+    if keep is not None:
+        keep.update(wide=(model, geno, res), wide_rate=N_WIDE / elapsed)
     return {"launches": launches, **timing["ensemble_scores"]}
 
 
@@ -2149,24 +2222,453 @@ def phase_limits(dev, card):
           f"{time.perf_counter() - t1:.1f} s | {card}")
 
 
+#: phase 11's mesh A: two shards of the classifiers on the one card
+MESH_A = ("cuda:0", "cuda:0")
+#: phase 11's budget, seconds (its checks and readings, not the artifacts
+#: `--mesh` rebuilds)
+MESH_BUDGET_S = 60.0
+#: phase 11 (d): train_dynamic's classifiers and job size
+DYN_K, DYN_JOB = 8, 2
+#: seconds the worker pair of phase 11 (d) may take
+PAIR_TIMEOUT_S = 180
+
+
+def _classifier_tuples(model):
+    return [(c.snp_index, c.hap_bits, c.bootstrap_count, c.oob_accuracy,
+             c.hap_allele, c.hap_freq) for c in model.classifiers]
+
+
+def _held_to(label, got, want):
+    """Raises unless the classifiers (as `_classifier_tuples`) have equal
+    SNPs, haplotypes, bootstraps, OOB and alleles and frequencies at rtol
+    1e-5 (tests/test_parallel.py:138-141); returns how many are bitwise
+    equal."""
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} classifiers, want "
+                             f"{len(want)}")
+    bitwise = 0
+    for k, (a, b) in enumerate(zip(got, want)):
+        for name, x, y in zip(("SNPs", "haplotypes", "bootstrap", "OOB",
+                               "alleles"), a[:5], b[:5]):
+            if not np.array_equal(x, y):
+                raise AssertionError(f"{label}: classifier {k}'s {name} "
+                                     "differ")
+        if a[5].shape != b[5].shape or not np.allclose(a[5], b[5], rtol=1e-5,
+                                                       atol=0):
+            raise AssertionError(f"{label}: classifier {k}'s frequencies "
+                                 "differ beyond rtol 1e-5")
+        bitwise += int(np.array_equal(a[5], b[5]))
+    return bitwise
+
+
+def _np_close(name, got, want, rtol, atol):
+    return _close(name, torch.from_numpy(np.asarray(got, dtype=np.float64)),
+                  torch.from_numpy(np.asarray(want, dtype=np.float64)),
+                  rtol, atol)
+
+
+def _mesh_predict(label, model, geno, single):
+    """(a): predict(devices=MESH_A, with_prob=True) twice, bitwise equal,
+    the second timed and counted; calls equal the one-card run's, postprob
+    and matching at rtol 2e-4, atol 1e-6. Then one call of the default
+    type (no posterior table, as phases 4 and 7 time), timed. Returns
+    (result, seconds, (ens_acc launches, scoring launches), response-only
+    seconds)."""
+    from hibag_tpu_torch import predict
+    from hibag_tpu_torch.ops import ens_acc
+    from hibag_tpu_torch.ops import post_scores as ps
+
+    first = predict(model, geno, devices=list(MESH_A), with_prob=True)
+    torch.cuda.synchronize()
+    ens_acc.LAUNCHES = ps.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = predict(model, geno, devices=list(MESH_A), with_prob=True)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = (ens_acc.LAUNCHES, ps.LAUNCHES)
+    for name in ("allele1", "allele2", "prob", "matching", "postprob"):
+        if not np.array_equal(getattr(first, name), getattr(res, name)):
+            raise AssertionError(f"{label}: two mesh predict() calls differ "
+                                 f"in {name}")
+    for name in ("postprob", "matching"):
+        _np_close(f"{label} mesh {name}", getattr(res, name),
+                  getattr(single, name), rtol=2e-4, atol=1e-6)
+    t0 = time.perf_counter()
+    resp = predict(model, geno, devices=list(MESH_A))
+    torch.cuda.synchronize()
+    el_resp = time.perf_counter() - t0
+    for name in ("allele1", "allele2"):
+        if not np.array_equal(getattr(resp, name), getattr(res, name)):
+            raise AssertionError(f"{label}: the mesh's response-only call "
+                                 f"differs in {name}")
+    return res, elapsed, launches, el_resp
+
+
+def _check_batch_split(dev, K=8, C=17, H=256, A=14, S=1024):
+    """Raises unless the evaluation, int8 EM and packed EM kernels give
+    bitwise over K classifiers what two launches over K/2 each give, on
+    phase 5's step shape by default: what a mesh's shards rest on."""
+    c = _train_case(np.random.default_rng(SEED + 11), K, C, H, A, S, dev)
+    kern, _, eargs = _eval_call(c)
+    cases = [("evaluate_candidates_kernel", kern, eargs,
+              (0, 1, 2, 3, 4, 5, 8, 9))]
+    for name, (k, _, a) in _em_calls(c).items():
+        cases.append((name, k, a, (0, 1, 2, 3, 4)))
+    halves = ((0, K // 2), (K // 2, K))
+    for name, k, a, kdim in cases:
+        whole = k(*a)
+        parts = [k(*[x[lo:hi].contiguous() if i in kdim else x
+                     for i, x in enumerate(a)]) for lo, hi in halves]
+        torch.cuda.synchronize()
+        for j, w in enumerate(whole):
+            if not torch.equal(w, torch.cat([p[j] for p in parts])):
+                raise AssertionError(f"{name}: K={K} differs from two "
+                                     f"launches of K={K // 2} in output {j}")
+
+
+def phase_mesh(dev, card, art):
+    """Phase 11: the classifiers split over mesh A (two shards on the one
+    card) in predict() and train_parallel(), the step kernels' batch
+    independence, and two worker processes over gloo on the card."""
+    from hibag_tpu_torch import predict, train_parallel
+    from hibag_tpu_torch.models import train as train_mod
+    from hibag_tpu_torch.models import train_fused
+    from hibag_tpu_torch.models.predict import SCAN_CCHUNK
+    from hibag_tpu_torch.ops import ens_acc
+    from hibag_tpu_torch.ops import post_scores as ps
+    from hibag_tpu_torch.ops import train_step as ts
+
+    t_start = time.perf_counter()
+    # (a) prediction: the slice's model on the ensemble kernel
+    model, geno, res4 = art["slice"]
+    ens_acc.LAUNCHES = 0
+    single = predict(model, geno, device="cuda", with_prob=True)
+    blocks = ens_acc.LAUNCHES
+    res, el, (ens_l, ps_l), el_r = _mesh_predict("slice", model, geno,
+                                                 single)
+    if ens_l != 2 * blocks or ps_l:
+        raise AssertionError(f"slice on mesh A: ens_acc launched {ens_l} "
+                             f"times (want 2 x {blocks} blocks), scoring "
+                             f"kernel {ps_l}")
+    for name in ("allele1", "allele2"):
+        if not np.array_equal(getattr(res, name), getattr(res4, name)):
+            raise AssertionError(f"slice on mesh A: {name} differ from "
+                                 "phase 4's calls")
+    slice_bitwise = np.array_equal(res.postprob, single.postprob)
+    print(f"[mesh] (a) slice predict(devices={list(MESH_A)}, with_prob=True)"
+          f" N={N_SLICE}: {N_SLICE / el:.1f} samples/s ({el * 1e3:.2f} ms); "
+          f"response only {N_SLICE / el_r:.1f} (phase 4, one card: "
+          f"{art['slice_rate']:.1f}); "
+          f"ens_acc launches {ens_l} = 2 x {blocks} blocks; two runs bitwise "
+          f"equal; calls equal phase 4's; postprob bitwise equal to one "
+          f"card's: {slice_bitwise} (two shards on one card) | {card}")
+
+    # (a) the wide model on the scan engine
+    wmodel, wgeno, wres = art["wide"]
+    ps.LAUNCHES = 0
+    wsingle = predict(wmodel, wgeno, device="cuda", with_prob=True)
+    single_ps = ps.LAUNCHES
+    res, el, (ens_l, ps_l), el_r = _mesh_predict("wide", wmodel, wgeno,
+                                                 wsingle)
+    C, cc = wmodel.n_classifiers, SCAN_CCHUNK
+    half = [C // 2 + C % 2, C // 2]
+    per_block = sum(-(-h // cc) for h in half)
+    wblocks = single_ps // -(-C // cc)
+    if ens_l or ps_l != per_block * wblocks:
+        raise AssertionError(f"wide on mesh A: scoring kernel launched "
+                             f"{ps_l} times (want {per_block} x {wblocks} "
+                             f"blocks), ens_acc {ens_l}")
+    top2 = -np.sort(-res.postprob, axis=0)[:2]
+    clear = top2[0] - top2[1] > 1e-4 * top2[0]
+    same = (res.allele1 == wres.allele1) & (res.allele2 == wres.allele2)
+    if not np.all(same[clear]):
+        raise AssertionError(f"wide on mesh A: {int((~same[clear]).sum())} "
+                             "calls differ from phase 7's outside the tie "
+                             "margin")
+    print(f"[mesh] (a) wide predict(devices=mesh A) N={N_WIDE}: "
+          f"{N_WIDE / el:.1f} samples/s ({el * 1e3:.2f} ms, with_prob); "
+          f"response only {N_WIDE / el_r:.1f} (phase 7, one card: "
+          f"{art['wide_rate']:.1f}); "
+          f"scoring launches {ps_l} = {per_block} chunks x {wblocks} blocks,"
+          f" ens_acc 0; calls equal phase 7's on {int(clear.sum())}/{N_WIDE}"
+          f" clear samples ({int(same.sum())} of all) | {card}")
+
+    # (b) training on mesh A: host, then fused, on phase 5's panel
+    table, geno5 = art["mid_panel"]
+    calls = []
+    step, fstep = train_mod.grow_step, train_fused._step
+
+    def counted(*a, **k):
+        calls.append((threading.get_ident(), a[0].device))
+        return step(*a, **k)
+
+    def fcounted(st, *a, **k):
+        calls.append((threading.get_ident(), st.bits.device))
+        return fstep(st, *a, **k)
+
+    readings = {}
+    for mode, kw, want, rate in (
+            ("host", HOST_KW, art["host_model"], art["host_rate"]),
+            ("fused", FUSED_KW, art["fused_model"], art["fused_rate"])):
+        kw = {k: v for k, v in kw.items() if k != "device"}
+        calls.clear()
+        for k in ts.LAUNCHES:
+            ts.LAUNCHES[k] = 0
+        train_mod.grow_step, train_fused._step = counted, fcounted
+        t0 = time.perf_counter()
+        try:
+            got = train_parallel(table, geno5, mesh=list(MESH_A), **kw)
+            torch.cuda.synchronize()
+        finally:
+            train_mod.grow_step, train_fused._step = step, fstep
+        el = time.perf_counter() - t0
+        lc = dict(ts.LAUNCHES)
+        threads = {t for t, _ in calls}
+        if lc["evaluate_candidates_kernel"] != len(calls) \
+                or lc["em_estep"] + lc["em_estep_packed"] < len(calls) \
+                or len(threads) < 2 or threading.get_ident() in threads \
+                or (mode == "host" and len(calls) % 2) \
+                or any(d.type != "cuda" for _, d in calls):
+            raise AssertionError(f"{mode} on mesh A: {len(calls)} shard "
+                                 f"steps from {len(threads)} threads, "
+                                 f"launches {lc}")
+        bitwise = _held_to(f"{mode} on mesh A", _classifier_tuples(got),
+                           _classifier_tuples(want))
+        K = kw["n_classifiers"]
+        readings[mode] = K / el
+        print(f"[mesh] (b) train_parallel(mode={mode!r}, mesh=mesh A) K={K}:"
+              f" {K / el:.4f} classifiers/s ({el:.3f} s; one card: "
+              f"{rate:.4f}); {len(calls)} shard steps, each in a shard's "
+              f"thread; "
+              f"launches EM int8 {lc['em_estep']}, packed "
+              f"{lc['em_estep_packed']}, eval "
+              f"{lc['evaluate_candidates_kernel']}; SNPs, haplotypes, "
+              f"bootstraps and OOB equal the one-card run's, frequencies at "
+              f"rtol 1e-5, bitwise {bitwise}/{K} (two shards on one card) | "
+              f"{card}")
+
+    # (c) the step kernels over K=8 against K=4 + 4
+    _check_batch_split(dev)
+    print(f"[mesh] (c) K=8 vs 4 + 4 at K=8 S=1024 H=256 C=17 A=14: the "
+          f"evaluation, int8 EM and packed EM kernels bitwise equal | {card}")
+
+    # (d) two processes on the card over gloo
+    wall, notes = _dist_pair(art)
+    elapsed = time.perf_counter() - t_start
+    print(f"[mesh] phase 11: {elapsed:.1f} s (budget {MESH_BUDGET_S:.0f} s); "
+          f"readings, two shards on one card (not a multi-GPU speed): "
+          f"predict as above, train host {readings['host']:.4f} and fused "
+          f"{readings['fused']:.4f} classifiers/s; worker pair {wall:.1f} s "
+          f"wall ({notes}) | {card}")
+    if elapsed > MESH_BUDGET_S:
+        raise AssertionError(f"phase 11 took {elapsed:.1f} s, over its "
+                             f"{MESH_BUDGET_S:.0f} s")
+
+
+def _dist_pair(art):
+    """(d): one pair of `chip_smoke.py --dist-worker` processes on the card,
+    each running train_distributed, train_dynamic and predict_distributed
+    in turn on inputs written to a temporary directory; checks their
+    results against the one-process runs. Returns (wall seconds, note)."""
+    import pickle
+    import socket
+
+    from hibag_tpu_torch import train_parallel
+
+    model, geno, res4 = art["slice"]
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "inputs.pkl"), "wb") as f:
+            pickle.dump({"mid": art["mid_panel"],
+                         "headline": art["headline_panel"],
+                         "model": model, "geno": geno}, f)
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=here)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.join(here, "chip_smoke.py"),
+             "--dist-worker", f"127.0.0.1:{port}", "2", str(i), tmp],
+            cwd=here, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for i in range(2)]
+        try:
+            logs = [p.communicate(timeout=PAIR_TIMEOUT_S)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        wall = time.perf_counter() - t0
+        for i, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"worker {i} exited {p.returncode}:\n"
+                                     f"{log[-4000:]}")
+        outs = []
+        for i in range(2):
+            with open(os.path.join(tmp, f"out{i}.pkl"), "rb") as f:
+                outs.append(pickle.load(f))
+        claims = sorted(os.listdir(os.path.join(tmp, "claims")))
+        owners = [open(os.path.join(tmp, "claims", c)).read()
+                  for c in claims]
+
+    n_jobs = -(-DYN_K // DYN_JOB)
+    if claims != [f"claim_{j}" for j in range(n_jobs)] \
+            or not set(owners) <= {"0", "1"}:
+        raise AssertionError(f"train_dynamic claims {claims} by {owners}")
+    kw = {k: v for k, v in PACKED_KW.items() if k != "n_classifiers"}
+    dyn_want = _classifier_tuples(train_parallel(
+        *art["headline_panel"], n_classifiers=DYN_K, **kw))
+    fused_want = _classifier_tuples(art["fused_model"])
+    bit = {"distributed": [], "dynamic": []}
+    for i, out in enumerate(outs):
+        for name, want in (("distributed", fused_want),
+                           ("dynamic", dyn_want)):
+            bit[name].append(_held_to(f"worker {i} {name}", out[name], want))
+        ld, ly, lp = (out["launches"][k] for k in ("distributed", "dynamic",
+                                                   "predict"))
+        if ld["evaluate_candidates_kernel"] < 1 or ld["em_estep"] < 1:
+            raise AssertionError(f"worker {i}: train_distributed launches "
+                                 f"{ld}")
+        mine = owners.count(str(i))
+        if mine < 1 or ly["em_estep_packed"] < 1:
+            raise AssertionError(f"worker {i}: {mine} train_dynamic jobs "
+                                 f"and packed EM launches {ly}")
+        if lp < 1:
+            raise AssertionError(f"worker {i}: predict_distributed did not "
+                                 "launch ens_acc")
+        p = out["predict"]
+        for name in ("allele1", "allele2"):
+            if not np.array_equal(p[name], getattr(res4, name)):
+                raise AssertionError(f"worker {i}: predict_distributed's "
+                                     f"{name} differ from phase 4's")
+        _np_close(f"worker {i} prob", p["prob"], res4.prob, rtol=2e-4,
+                  atol=0)
+    pbit = all(np.array_equal(o["predict"]["prob"], res4.prob) for o in outs)
+    secs = {k: max(o["seconds"][k] for o in outs) for k in outs[0]["seconds"]}
+    return wall, (f"slower worker's seconds: train_distributed "
+                  f"{secs['distributed']:.3f} (K=8, one process on one card "
+                  f"in phase 5: {8 / art['fused_rate']:.3f}), train_dynamic "
+                  f"{secs['dynamic']:.3f}, predict_distributed "
+                  f"{secs['predict']:.3f}; "
+                  f"train_distributed bitwise {bit['distributed']}/8 per "
+                  f"worker, train_dynamic jobs by worker "
+                  f"{[owners.count(str(i)) for i in range(2)]} with worker 1 "
+                  f"joining once worker 0 had claimed a job, bitwise "
+                  f"{bit['dynamic']}/"
+                  f"{DYN_K}, predict_distributed calls equal phase 4's, prob "
+                  f"bitwise: {pbit}")
+
+
+def _await_claim(work_dir, timeout=60.0):
+    """Return once `work_dir` holds a claim file (phase 11 (d)'s late
+    joiner)."""
+    deadline = time.monotonic() + timeout
+    while not (os.path.isdir(work_dir) and os.listdir(work_dir)):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no claim in {work_dir} after {timeout} s")
+        time.sleep(0.01)
+
+
+def dist_worker(argv):
+    """One process of phase 11 (d): `chip_smoke.py --dist-worker <host:port>
+    <nproc> <pid> <dir>`; reads dir/inputs.pkl, writes dir/out<pid>.pkl."""
+    import pickle
+
+    from hibag_tpu_torch import train_distributed, train_dynamic
+    from hibag_tpu_torch.ops import ens_acc
+    from hibag_tpu_torch.ops import train_step as ts
+    from hibag_tpu_torch.parallel.mesh import (distributed_init,
+                                               predict_distributed)
+
+    coord, nproc, pid, tmp = argv[0], int(argv[1]), int(argv[2]), argv[3]
+    with open(os.path.join(tmp, "inputs.pkl"), "rb") as f:
+        inp = pickle.load(f)
+    distributed_init(coord, nproc, pid)
+    out, launches, secs = {}, {}, {}
+
+    def reset():
+        ens_acc.LAUNCHES = 0
+        for k in ts.LAUNCHES:
+            ts.LAUNCHES[k] = 0
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    t0 = reset()
+    out["distributed"] = _classifier_tuples(
+        train_distributed(*inp["mid"], **FUSED_KW))
+    launches["distributed"] = dict(ts.LAUNCHES)
+    secs["distributed"] = time.perf_counter() - t0
+    t0 = reset()
+    if pid == 1:
+        _await_claim(os.path.join(tmp, "claims"))
+    kw = {k: v for k, v in PACKED_KW.items() if k != "n_classifiers"}
+    out["dynamic"] = _classifier_tuples(train_dynamic(
+        *inp["headline"], n_classifiers=DYN_K, job_size=DYN_JOB,
+        work_dir=os.path.join(tmp, "claims"), **kw))
+    launches["dynamic"] = dict(ts.LAUNCHES)
+    secs["dynamic"] = time.perf_counter() - t0
+    t0 = reset()
+    res = predict_distributed(inp["model"], inp["geno"], device="cuda")
+    torch.cuda.synchronize()
+    launches["predict"] = ens_acc.LAUNCHES
+    secs["predict"] = time.perf_counter() - t0
+    out["predict"] = {k: getattr(res, k) for k in
+                      ("allele1", "allele2", "prob", "matching")}
+    out["launches"], out["seconds"] = launches, secs
+    with open(os.path.join(tmp, f"out{pid}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def _mesh_artifacts():
+    """What phase 11 takes from phases 4-8, made anew for `--mesh`: the
+    slice's model, cohort and one-card calls, the wide model's, phase 5's
+    fused and phase 8's host classifiers on their panel, phase 6's
+    panel."""
+    from hibag_tpu_torch import predict, train_parallel
+
+    model, geno, _, _ = _slice_case()
+    predict(model, geno, device="cuda")
+    t0 = time.perf_counter()
+    res = predict(model, geno, device="cuda")
+    art = dict(slice=(model, geno, res),
+               slice_rate=N_SLICE / (time.perf_counter() - t0))
+    wmodel, wgeno, _, _ = _wide_case()
+    predict(wmodel, wgeno, device="cuda")
+    t0 = time.perf_counter()
+    art["wide"] = (wmodel, wgeno, predict(wmodel, wgeno, device="cuda"))
+    art["wide_rate"] = N_WIDE / (time.perf_counter() - t0)
+    (table, geno5), _ = _mid_panel()
+    art["mid_panel"] = (table, geno5)
+    art["headline_panel"] = _headline_panel()
+    for name, kw in (("fused", FUSED_KW), ("host", HOST_KW)):
+        train_parallel(table, geno5, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        art[f"{name}_model"] = train_parallel(table, geno5, **kw)
+        torch.cuda.synchronize()
+        art[f"{name}_rate"] = kw["n_classifiers"] / (time.perf_counter() - t0)
+    return art
+
+
+def mesh_only():
+    """Phase 11 alone, after phases 1 and 2 (its inputs made anew); prints
+    no result line."""
+    dev, card = phase_device()
+    phase_build()
+    phase_mesh(dev, card, _mesh_artifacts())
+
+
 def main():
     dev, card = phase_device()
     phase_build()
 
-    from hibag_tpu_torch import AttrBagModel, predict
+    from hibag_tpu_torch import predict
     from hibag_tpu_torch.data.geno import align_to_model
     from hibag_tpu_torch.models import predict as predict_mod
     from hibag_tpu_torch.ops import ens_acc
-    from hibag_tpu_torch.utils.synthetic import (synthetic_cohort,
-                                                 synthetic_model)
 
-    built, pool = synthetic_model(SEED, n_classifiers=100, n_snp=1000,
-                                  n_alleles=48)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "model.npz")
-        built.save(path)
-        model = AttrBagModel.load(path)
-    geno, true1, true2 = synthetic_cohort(model, pool, N_SLICE, SEED + 1)
+    model, geno, true1, true2 = _slice_case()
     A = model.n_alleles
 
     # phase 3 on the tensors predict() builds for the slice
@@ -2221,13 +2723,15 @@ def main():
           f"{launches}, two calls bitwise equal, f64 calls equal on "
           f"{int(clear.sum())}/{N_F64} clear samples | {card}")
 
+    art = dict(slice=(model, geno, res), slice_rate=rate)
     train_timing = phase_train_kernels(dev)
-    train_launches, fused_rate = phase_train(card)
-    train_launches["em_estep_packed"] = phase_packed(card)
-    wide = phase_wide(dev, card)
-    phase_host(card, fused_rate)
+    train_launches, fused_rate = phase_train(card, art)
+    train_launches["em_estep_packed"] = phase_packed(card, art)
+    wide = phase_wide(dev, card, art)
+    phase_host(card, fused_rate, art)
     phase_files(card, model, geno, true1, true2, res, clear)
     phase_limits(dev, card)
+    phase_mesh(dev, card, art)
 
     kernels = [{"name": "ens_acc", "route": "cuda",
                 "source": "hibag_tpu_torch/csrc/ens_acc.cu",
@@ -2268,4 +2772,8 @@ def limits_only():
 if __name__ == "__main__":
     if sys.argv[1:] == ["--limits"]:
         sys.exit(limits_only())
+    if sys.argv[1:] == ["--mesh"]:
+        sys.exit(mesh_only())
+    if sys.argv[1:2] == ["--dist-worker"]:
+        sys.exit(dist_worker(sys.argv[2:]))
     sys.exit(main())

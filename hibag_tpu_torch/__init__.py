@@ -18,9 +18,13 @@ genotype helpers (`switch_strand`, `combine_geno`); `report`, the
 association tests (`assoc_test`, `aa_assoc_test`, `format_assoc`) and the
 matplotlib plots; the amino-acid conversion (`convert_table`,
 `hlaConvSequence`, `conv_sequence`, `AASeqTable`, `format_residue_table`);
-the benchmark datasets (`utils.bench_data`); and the CLI, ``python -m
+the benchmark datasets (`utils.bench_data`); the CLI, ``python -m
 hibag_tpu_torch impute|train|convert|summary|report``
-(hibag_tpu_torch/cli.py). Not yet ported: multiple devices.
+(hibag_tpu_torch/cli.py); and many devices and processes: ``predict(mesh=,
+devices=)`` and ``train_parallel(mesh=)`` split the classifiers over a list
+of devices (`parallel.mesh.ensemble_mesh`), and `train_distributed`,
+`train_dynamic` and `parallel.mesh.predict_distributed` run over processes
+(torch.distributed, gloo).
 """
 
 __version__ = "0.1.0"
@@ -48,7 +52,8 @@ from .models.model import AttrBagModel, Classifier, PackedEnsemble
 from .models.predict import PredictionResult, predict
 from .models.publish import (model_files, model_to_robj, out_of_bag,
                              pred_merge, publish, save_rdata)
-from .models.train import train, train_parallel
+from .models.train import (train, train_distributed, train_dynamic,
+                           train_parallel)
 from .seq.aa import (AASeqTable, conv_sequence, convert_table,
                      format_residue_table)
 from .utils.rng import RRng

@@ -20,11 +20,13 @@ from ..ops.ens_acc import PackedHaplotypes, pack_haplotypes
 from .train_fused import GrowState
 
 
-def ensemble_from_packed(packed, device) -> PackedHaplotypes:
-    """From a PackedEnsemble's hap_bits [C, Hm, L], hap_freq [C, Hm] and
-    hap_allele [C, Hm]."""
-    return pack_haplotypes(packed.hap_bits, packed.hap_freq, packed.hap_allele,
-                           packed.n_alleles, device)
+def ensemble_from_packed(packed, device, c0: int = 0,
+                         c1=None) -> PackedHaplotypes:
+    """From classifiers c0..c1-1 (all by default) of a PackedEnsemble's
+    hap_bits [C, Hm, L], hap_freq [C, Hm] and hap_allele [C, Hm]."""
+    sl = slice(c0, c1)
+    return pack_haplotypes(packed.hap_bits[sl], packed.hap_freq[sl],
+                           packed.hap_allele[sl], packed.n_alleles, device)
 
 
 def ensemble_from_jax_prepared(hb, W, valid, device) -> PackedHaplotypes:

@@ -1,5 +1,7 @@
 """Ensemble HLA-type prediction in PyTorch (counterpart of
-hibag_tpu/models/predict.py, single device).
+hibag_tpu/models/predict.py), with the classifiers split over a mesh of
+devices (parallel/mesh.py; one device is a mesh of one shard): each block of
+samples goes through `_predict_block_mesh`.
 
 Per classifier c and sample n (reference semantics, src/LibHLA.cpp:2317-2482):
   * classifier weight w[n,c] = Σ snp_weight over c's non-missing SNPs in n,
@@ -15,7 +17,7 @@ Two engines, chosen openly by the model's shape:
     for every model that kernel takes (ens_acc.fits: at most 1,024
     haplotypes per classifier and 128 alleles), and engine="pallas" always
     (it raises for a model the kernel does not take);
-  * the scan engine (_predict_block): chunks of SCAN_CCHUNK classifiers,
+  * the scan engine (_scan_raw): chunks of SCAN_CCHUNK classifiers,
     each chunk one call of ops.post_scores.ensemble_scores, then
     per-classifier weights, majority votes and matching in torch ops.
     engine="auto" takes it for the wider models, as hibag_tpu.predict does
@@ -111,17 +113,18 @@ def _chunk_scores(hap, c0, c1, n_alleles, f64):
     return lambda g: ensemble_scores(part, g, A)
 
 
-def _predict_block(hap, snp_index, snp_weight, geno_codes, n_alleles,
-                   vote="prob", cchunk=SCAN_CCHUNK, f64=False):
-    """One block of samples against the whole ensemble, `cchunk`
-    classifiers at a time (the scan engine).
+def _scan_raw(hap, snp_index, snp_weight, geno_codes, n_alleles,
+              vote="prob", cchunk=SCAN_CCHUNK, f64=False):
+    """One block of samples against the ensemble `hap`, `cchunk`
+    classifiers at a time (the scan engine), before normalisation.
 
     hap: the ensemble as PackedHaplotypes, scored in float32 by the scoring
     kernel on a card and by its plain version on the CPU; with `f64`, the
     tuple (hap_bits [C,Hm,L], hap_freq [C,Hm] float64, hap_allele [C,Hm]).
     snp_index [C,L]; snp_weight [P]; geno_codes [n,P] uint8. The last chunk
-    may hold fewer classifiers. Returns ens [n,A,A] (weight-normalized,
-    symmetric unordered convention), wsum [n], log_match [C,n], w [C,n].
+    may hold fewer classifiers. Returns ens [n,A,A] (the weighted sum over
+    the classifiers, symmetric unordered convention), wsum [n], log_match
+    [C,n], w [C,n].
     """
     n, A = geno_codes.shape[0], n_alleles
     C = snp_index.shape[0]
@@ -138,27 +141,39 @@ def _predict_block(hap, snp_index, snp_weight, geno_codes, n_alleles,
         wsum += wadd
         log_match.append(lm)
         ws.append(w)
-    ens = ens / wsum.clamp_min(1e-30)[:, None, None]
     return ens, wsum, torch.cat(log_match), torch.cat(ws)
 
 
-#: device tensors per PackedEnsemble, one entry per device (weak: dies with
-#: the pack)
+def _predict_block(hap, snp_index, snp_weight, geno_codes, n_alleles,
+                   vote="prob", cchunk=SCAN_CCHUNK, f64=False):
+    """`_scan_raw` with ens weight-normalized: ens [n,A,A], wsum [n],
+    log_match [C,n], w [C,n]."""
+    ens, wsum, log_match, w = _scan_raw(hap, snp_index, snp_weight,
+                                        geno_codes, n_alleles, vote, cchunk,
+                                        f64)
+    return ens / wsum.clamp_min(1e-30)[:, None, None], wsum, log_match, w
+
+
+#: device tensors per PackedEnsemble, one entry per (device, classifier
+#: range) (weak: dies with the pack)
 _PREP_CACHE = IdCache()
 
 
-def _prepare_ensemble(packed, device) -> PackedHaplotypes:
-    """The ensemble in the kernels' layout on `device`, built once per
-    (PackedEnsemble, device) so repeated predict() calls skip the packing
-    and the host-to-device copy."""
-    per_dev = _PREP_CACHE.get(packed)
-    if per_dev is None:
-        per_dev = {}
-        _PREP_CACHE.set(packed, per_dev)
-    hap = per_dev.get(device)
+def _prepare_ensemble(packed, device, c0: int = 0,
+                      c1: Optional[int] = None) -> PackedHaplotypes:
+    """Classifiers c0..c1-1 of the ensemble (all by default) in the kernels'
+    layout on `device`, built once per (PackedEnsemble, device, range) so
+    repeated predict() calls, and repeated calls on a mesh shard by shard,
+    skip the packing and the host-to-device copy."""
+    c1 = packed.hap_bits.shape[0] if c1 is None else c1
+    memo = _PREP_CACHE.get(packed)
+    if memo is None:
+        memo = {}
+        _PREP_CACHE.set(packed, memo)
+    hap = memo.get((device, c0, c1))
     if hap is None:
-        hap = ensemble_from_packed(packed, device)
-        per_dev[device] = hap
+        hap = ensemble_from_packed(packed, device, c0, c1)
+        memo[(device, c0, c1)] = hap
     return hap
 
 
@@ -195,15 +210,35 @@ def _ens_wsum(w, vote):
     return w.sum(0) if vote == "prob" else (w > 0).to(w.dtype).sum(0)
 
 
-def _predict_block_ens(hap, snp_index, snp_weight, geno_codes, n_alleles,
-                       vote="prob"):
-    """Whole-ensemble prediction for one sample block through the ensemble
-    kernel. Same returns as _predict_block."""
-    ens, log_match, w = _ens_core(hap, snp_index, snp_weight, geno_codes,
-                                  n_alleles, vote)
-    wsum = _ens_wsum(w, vote)
-    ens = ens / wsum.clamp_min(1e-30)[:, None, None]
-    return ens, wsum, log_match, w
+def _predict_block_mesh(shards, snp_weight, geno, n_alleles, vote, use_ens):
+    """One sample block over the shards of a mesh (a one-device predict()
+    is a mesh of one shard): each shard (device, hap, snp_index) runs the
+    ensemble kernel (`_ens_core`, one launch) or the scan engine
+    (`_scan_raw`) over its classifiers on its device, with snp_weight and
+    the block's codes `geno` taken from dicts by device. On the first
+    shard's device (mesh.devices[0]) the shards' weighted posteriors and
+    weight sums are added in mesh order, and log_match and w concatenated in
+    classifier order. Same returns as _predict_block."""
+    from ..parallel.mesh import run_shards
+
+    def run(dev, hap, si):
+        if use_ens:
+            ens, lm, w = _ens_core(hap, si, snp_weight[dev], geno[dev],
+                                   n_alleles, vote)
+            return ens, _ens_wsum(w, vote), lm, w
+        return _scan_raw(hap, si, snp_weight[dev], geno[dev], n_alleles,
+                         vote)
+
+    parts = run_shards([d for d, _, _ in shards],
+                       [(lambda s=s: run(*s)) for s in shards])
+    d0 = shards[0][0]
+    ens, wsum = parts[0][0], parts[0][1]
+    for p in parts[1:]:
+        ens = ens + p[0].to(d0)
+        wsum = wsum + p[1].to(d0)
+    log_match = torch.cat([p[2].to(d0) for p in parts])
+    w = torch.cat([p[3].to(d0) for p in parts])
+    return ens / wsum.clamp_min(1e-30)[:, None, None], wsum, log_match, w
 
 
 def _pack_cols(ens, wsum, lse, wssum, response):
@@ -329,12 +364,17 @@ def predict(model: AttrBagModel, data, vote: str = "prob",
     dtype: np.float64 selects the reference-precision scan engine, plain
     PyTorch in float64 on any device, whatever `engine` says (hibag_tpu's
     float64 path forces "jnp" and has no kernel either).
-    mesh / devices: multi-device prediction is not ported yet and raises
-    NotImplementedError.
+    mesh / devices: split the classifiers over a mesh
+    (parallel/mesh.py::ensemble_mesh; `devices`, a list of devices, builds
+    one; `mesh` may be such a list too), replacing the reference's
+    per-worker splits in hlaPredict(cl=) (R/HIBAG.R:764-807). Each shard of
+    classifiers runs the engine's kernel on its device (the ensemble
+    kernel: one launch per shard and block; the scan engine: its chunks),
+    and the shards' weighted posteriors are summed on the mesh's first
+    device (`_predict_block_mesh`); `device` is then not read. Without
+    them, `device` is a mesh of one shard. float64 takes no mesh
+    (ValueError).
     """
-    if mesh is not None or devices is not None:
-        raise NotImplementedError("multi-device prediction (mesh=/devices=) "
-                                  "is not ported to hibag_tpu_torch yet")
     if type is not None:
         if type not in ("response+dosage", "response", "prob",
                         "response+prob"):
@@ -346,7 +386,16 @@ def predict(model: AttrBagModel, data, vote: str = "prob",
     if engine not in ("auto", "pallas", "jnp", "scan"):
         raise ValueError(f"unknown engine {engine!r}")
     f64 = np.dtype(dtype) == np.float64
-    dev = resolve_device(device)
+    if mesh is None and devices is not None:
+        mesh = devices
+    if f64:
+        if mesh is not None:
+            raise ValueError("dtype=float64 prediction is single-device only")
+        dev = resolve_device(device)
+    else:
+        from ..parallel.mesh import as_mesh, ensemble_mesh, shard_bounds
+        mesh = ensemble_mesh([device]) if mesh is None else as_mesh(mesh)
+        dev = mesh.devices[0]
     from ..data.geno import SNPGenoData, align_to_model
 
     if isinstance(data, SNPGenoData):
@@ -373,9 +422,13 @@ def predict(model: AttrBagModel, data, vote: str = "prob",
             packed.hap_bits, packed.hap_freq, packed.hap_allele))
         Hm = packed.hap_bits.shape[1]
         use_ens = False
+        si = torch.from_numpy(packed.snp_index).to(dev)
+        shards = []
     else:
-        hap = _prepare_ensemble(packed, dev)
-        Hm = hap.n_slots
+        shards = [(d, _prepare_ensemble(packed, d, lo, hi),
+                   torch.from_numpy(packed.snp_index[lo:hi]).to(d))
+                  for d, lo, hi in shard_bounds(mesh, C)]
+        Hm = max(h.n_slots for _, h, _ in shards)
         use_ens = engine in ("auto", "pallas") and ens_acc.fits(Hm, A)
         if engine == "pallas" and not use_ens:
             raise ValueError(
@@ -385,7 +438,6 @@ def predict(model: AttrBagModel, data, vote: str = "prob",
                 "(engine='auto' or 'jnp' runs the scan engine)")
         if not use_ens:
             post_scores.check_limits(Hm, A)
-    si = torch.from_numpy(packed.snp_index).to(dev)
     sw = torch.from_numpy(packed.snp_weight.astype(np.int32)).to(dev)
     if block is None:
         block = _default_block(N, C, A, Hm, dev, use_ens, SCAN_CCHUNK, f64)
@@ -403,14 +455,21 @@ def predict(model: AttrBagModel, data, vote: str = "prob",
     from ..utils.progress import Progress
     prog = Progress(N, info="Predicting", enabled=verbose)
 
-    # the cohort is copied to the device once; blocks are slices of it
+    # the cohort is copied to each device once; blocks are slices of it
     geno_all = torch.from_numpy(np.ascontiguousarray(codes)).to(dev)
+    on = {dev: (geno_all, sw)}
+    for d, _, _ in shards:
+        if d not in on:
+            on[d] = (geno_all.to(d), sw.to(d))
     for start in range(0, N, block):
-        g = geno_all[start:start + block]
-        if use_ens:
-            out = _predict_block_ens(hap, si, sw, g, A, vote)
+        if f64:
+            out = _predict_block(hap, si, sw, geno_all[start:start + block],
+                                 A, vote, SCAN_CCHUNK, f64)
         else:
-            out = _predict_block(hap, si, sw, g, A, vote, SCAN_CCHUNK, f64)
+            out = _predict_block_mesh(
+                shards, {d: x[1] for d, x in on.items()},
+                {d: x[0][start:start + block] for d, x in on.items()}, A,
+                vote, use_ens)
         buf = _pack_stats(*out, response=response).to(
             "cpu", torch.float64).numpy()
         n_eff = buf.shape[0]

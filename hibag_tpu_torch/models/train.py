@@ -2,7 +2,8 @@
 hlaParallelAttrBagging, reference R/HIBAG.R:48-451).
 
 `make_training_context` intersects samples, filters SNPs and factorises
-alleles. Two trainers grow the classifiers on one device:
+alleles. Two trainers grow the classifiers, on one device or with the
+batch split over a mesh of devices (parallel/mesh.py):
 
 * the host trainer (`train`, `grow_classifier`, `train_parallel_batch`,
   ``train_parallel(mode="host")``): the reference's greedy loop on the host
@@ -15,13 +16,15 @@ alleles. Two trainers grow the classifiers on one device:
 
 ``train_parallel(mode="auto")`` trains fused on a CUDA device and host on
 the CPU, as hibag_tpu picks host mode on its CPU backend.
+`train_distributed` (a fixed share of the ensemble per process) and
+`train_dynamic` (batches claimed through files) train over processes.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import numpy as np
@@ -33,12 +36,9 @@ from ..constants import (FRACTION_HAPLO, GENO_MISSING, MAXNUM_SNP,
 from ..data.allele import unique_alleles
 from ..device import resolve_device
 from ..utils.rng import RRng
+from .em import MASK_TOTAL_BUDGET_BYTES
 from .model import AttrBagModel, Classifier
 from .train_fused import grow_step, resolve_engine
-
-#: where multi-device training stands (train_parallel(mesh=) raises)
-_MESH_TODO = ("multi-device training (mesh=) is not ported to hibag_tpu_torch "
-              "yet: ROADMAP queue 1, multi-GPU (parallel/mesh.py)")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -104,7 +104,8 @@ class TrainingContext:
     Samples and SNPs are padded to shape buckets (as hibag_tpu pads them):
     padded samples are all-missing (code 3) with bootstrap weight 0, and
     padded SNP columns start outside the candidate pool. The host trainer
-    pads each step's haplotype list to a multiple of `hap_bucket`.
+    pads each step's haplotype list to a multiple of `hap_bucket`. `on`
+    gives the same data on another device (a mesh replicates it so).
     """
 
     geno: np.ndarray          # [N, P] codes {0,1,2,3}
@@ -132,6 +133,15 @@ class TrainingContext:
         self.geno_t = t(self.geno_pad.astype(np.int8))
         self.a1_t = t(np.pad(self.a1, (0, pad)).astype(np.int32))
         self.a2_t = t(np.pad(self.a2, (0, pad)).astype(np.int32))
+        self._copies = {self.device: self}
+
+    def on(self, device) -> "TrainingContext":
+        """This context with its tensors on `device`, made once per
+        device."""
+        device = torch.device(device)
+        if device not in self._copies:
+            self._copies[device] = replace(self, device=device)
+        return self._copies[device]
 
     def pad_B(self, B: np.ndarray) -> np.ndarray:
         return np.pad(B, (0, self.n_samp_pad - self.n_samp))
@@ -331,28 +341,36 @@ def _ordered_results(ctx, states, g_cand, geno_sel, Bs, done, rare_prob,
 def _grow_host(ctx: TrainingContext, Bs: np.ndarray, rngs: list, mtry: int,
                prune: bool = True, dtype=np.float32, engine=None,
                eval_mode: str = "device", verbose_detail: bool = False,
-               mask_budget: Optional[int] = None) -> list:
+               mask_budget: Optional[int] = None, mesh=None) -> list:
     """Grow K classifiers in lockstep on the host loop (hibag_tpu's
     grow_classifier and train_parallel_batch): Bs [K, N] bootstrap counts;
     classifier k draws its candidates from rngs[k]. Each step pads every
     haplotype list to the batch's largest, rounded up to ctx.hap_bucket,
     and the candidates to `mtry` (column 0, not ok), and runs the device
-    work of all K classifiers as one `grow_step`; a finished classifier
-    rides along with an empty draw and its results are discarded."""
+    work of all K classifiers as one `grow_step` on ctx.device, or with
+    `mesh` (an EnsembleMesh) as one `grow_step` per shard of classifiers
+    on the shard's device (parallel/mesh.py::run_shards), every shard padded
+    to the batch's one Hcap; a finished classifier rides along with an
+    empty draw and its results are discarded. The decisions stay one loop
+    over all K. ``mask_budget`` None gives each classifier
+    MASK_TOTAL_BUDGET_BYTES // K of the whole batch, so a shard takes the
+    mask tiers of the whole batch."""
     dtype = np.dtype(dtype)
     if dtype not in (np.float32, np.float64):
         raise ValueError(f"dtype {dtype}: use np.float32 or np.float64")
     if eval_mode not in ("device", "ordered"):
         raise ValueError(f"unknown eval_mode {eval_mode!r}")
     f64 = dtype == np.float64
-    dev = ctx.device
     if f64 and engine == "cuda":
         raise ValueError("dtype=np.float64 runs the plain versions: the CUDA "
                          "kernels compute in float32")
-    engine = resolve_engine(engine, dev)
-    if f64:
-        engine = "torch"
+    from ..parallel.mesh import run_shards, shard_bounds
+
     K = len(rngs)
+    shards = [(ctx.device, 0, K)] if mesh is None else shard_bounds(mesh, K)
+    engine = "torch" if f64 else resolve_engine(engine, shards[0][0])
+    if mask_budget is None:
+        mask_budget = MASK_TOTAL_BUDGET_BYTES // max(K, 1)
     N, P = ctx.n_samp, ctx.n_snp
     Np, L = ctx.n_samp_pad, MAXNUM_SNP
     rare_prob = max(FRACTION_HAPLO / (2.0 * N), MIN_RARE_FREQ)
@@ -360,9 +378,28 @@ def _grow_host(ctx: TrainingContext, Bs: np.ndarray, rngs: list, mtry: int,
     Bs = np.asarray(Bs, dtype=np.int64)
     Bs_pad = np.stack([ctx.pad_B(b) for b in Bs])                # [K, Np]
     n_oob = (Bs == 0).sum(1)
-    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-    B_t = t(Bs_pad.astype(dtype))
-    oob_t = t((Bs_pad == 0) & (np.arange(Np) < N)[None, :])
+    t = lambda x, d: torch.from_numpy(np.ascontiguousarray(x)).to(d)
+    oob = (Bs_pad == 0) & (np.arange(Np) < N)[None, :]
+    consts = [(ctx.on(d), t(Bs_pad[lo:hi].astype(dtype), d), t(oob[lo:hi], d))
+              for d, lo, hi in shards]
+
+    def device_step(bits, freq, allele, g_cand, afreq):
+        def run(i):
+            d, lo, hi = shards[i]
+            c, B_t, oob_t = consts[i]
+            out = grow_step(
+                t(bits[lo:hi], d), t(freq[lo:hi], d), t(allele[lo:hi], d),
+                t(geno_sel[lo:hi], d), B_t, oob_t, t(g_cand[lo:hi], d),
+                t(afreq[lo:hi].astype(dtype), d), c.a1_t, c.a2_t,
+                ctx.n_alleles, rare_prob, float(N), mask_budget, engine,
+                skip=t(np.array(done[lo:hi]), d), reltol=reltol)
+            return [x.to("cpu", torch.float64).numpy()
+                    if x.is_floating_point() else x.cpu().numpy()
+                    for x in out]
+
+        parts = run_shards([d for d, _, _ in shards],
+                           [(lambda i=i: run(i)) for i in range(len(shards))])
+        return [np.concatenate(x) for x in zip(*parts)]
 
     states = [_init_haplotype(ctx, b) for b in Bs]
     snp_sels: list[list[int]] = [[] for _ in range(K)]
@@ -411,15 +448,8 @@ def _grow_host(ctx: TrainingContext, Bs: np.ndarray, rngs: list, mtry: int,
             fA, fB, acc_b, loss_b = _ordered_results(
                 ctx, states, g_cand, geno_sel, Bs, done, rare_prob, Hcap)
         else:
-            fA, fB, acc_b, loss_b = grow_step(
-                t(bits), t(freq), t(allele), t(geno_sel), B_t, oob_t,
-                t(g_cand), t(afreq.astype(dtype)), ctx.a1_t, ctx.a2_t,
-                ctx.n_alleles, rare_prob, float(N), mask_budget, engine,
-                skip=t(np.array(done)), reltol=reltol)
-            fA = fA.to("cpu", torch.float64).numpy()
-            fB = fB.to("cpu", torch.float64).numpy()
-            acc_b = acc_b.cpu().numpy()
-            loss_b = loss_b.to("cpu", torch.float64).numpy()
+            fA, fB, acc_b, loss_b = device_step(bits, freq, allele, g_cand,
+                                                afreq)
 
         for k in range(K):
             if done[k]:
@@ -493,14 +523,15 @@ def train_parallel_batch(ctx: TrainingContext, rngs: list, mtry: int,
     (hibag_tpu's train_parallel_batch). Classifier k draws its bootstrap,
     then its candidates, from rngs[k]. ``engine`` as in `grow_classifier`;
     ``mask_budget``: bytes of EM pair mask per classifier (models.em
-    tiers); ``mesh`` raises NotImplementedError (multi-device
-    training is not ported); ``verbose`` is accepted for hibag_tpu's
+    tiers); ``mesh`` (an EnsembleMesh or a list of devices) splits each
+    step's device work over its devices, the training data replicated
+    (`TrainingContext.on`); ``verbose`` is accepted for hibag_tpu's
     signature."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
+    from ..parallel.mesh import as_mesh
+
     Bs = np.stack([r.bootstrap_counts(ctx.n_samp) for r in rngs])
     return _grow_host(ctx, Bs, rngs, mtry, prune=prune, engine=engine,
-                      mask_budget=mask_budget)
+                      mask_budget=mask_budget, mesh=as_mesh(mesh))
 
 
 def train_parallel(hla_table, geno_data, n_classifiers: int = 100,
@@ -520,9 +551,16 @@ def train_parallel(hla_table, geno_data, n_classifiers: int = 100,
     default, which raises without a card; "cpu" runs the kernels' plain
     versions).
 
-    Trains `n_classifiers` in batches of `batch` (default 8); classifier j
-    of the ensemble has the id first_id + j, which fixes its bootstrap and
-    its candidate draws, so batching does not change the result. ``mode``:
+    Trains `n_classifiers` in batches of `batch` (default 8, or one per
+    mesh device); classifier j of the ensemble has the id first_id + j,
+    which fixes its bootstrap and its candidate draws, so batching and
+    placement do not change the result. ``mesh`` (an EnsembleMesh or a list
+    of devices) splits each batch over its devices, which replaces
+    `device`; each shard runs the step kernels on its device. The shards'
+    host loops take turns on the one process's interpreter lock, so a mesh
+    trains no faster than one device (two shards on one card were slower
+    than one device: PERF.md); to train on several cards, run one process
+    per card with `train_distributed` or `train_dynamic`. ``mode``:
     "host" grows them with `train_parallel_batch` (the R RNG stream
     RRng((seed + 1000003 * id) mod (2^31 - 1)), haplotype lists padded to
     multiples of `hap_bucket`); "fused" with
@@ -532,22 +570,22 @@ def train_parallel(hla_table, geno_data, n_classifiers: int = 100,
     `auto_save` the partial model is written after every batch; with
     `resume` and an existing `auto_save` file training continues from it.
     ``engine`` "torch" runs the plain versions of the kernels on any device
-    (train_fused.resolve_engine). ``mesh`` raises NotImplementedError. The
-    other arguments are hibag_tpu's.
+    (train_fused.resolve_engine). The other arguments are hibag_tpu's.
     """
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
     if mode not in ("fused", "host", "auto"):
         raise ValueError(f"unknown mode {mode!r}")
+    from ..parallel.mesh import as_mesh
     from .train_fused import train_fused_batch
 
+    mesh = as_mesh(mesh)
     ctx, alleles, _ = make_training_context(
         hla_table, geno_data, na_rm=na_rm, mono_rm=mono_rm, maf=maf,
-        hap_bucket=hap_bucket, device=device)
+        hap_bucket=hap_bucket,
+        device=device if mesh is None else mesh.devices[0])
     m = _resolve_mtry(mtry, ctx.n_snp)
     if mode == "auto":
         mode = "fused" if ctx.device.type == "cuda" else "host"
-    batch = batch or 8
+    batch = batch or (mesh.size if mesh is not None else 8)
 
     classifiers: list = []
     k0 = first_id
@@ -563,11 +601,11 @@ def train_parallel(hla_table, geno_data, n_classifiers: int = 100,
                 ctx, kb, seed=seed, mtry=m, prune=prune, hcap=hcap,
                 first_id=k0, max_steps=max_steps, seg_steps=seg_steps,
                 on_overflow=on_overflow, freeze_max_batch=freeze_max_batch,
-                engine=engine, mask_budget=mask_budget)
+                engine=engine, mask_budget=mask_budget, mesh=mesh)
         else:
             rngs = [RRng((seed + 1000003 * (k0 + j)) % (2**31 - 1))
                     for j in range(kb)]
-            cls = train_parallel_batch(ctx, rngs, m, prune=prune,
+            cls = train_parallel_batch(ctx, rngs, m, prune=prune, mesh=mesh,
                                        engine=engine, mask_budget=mask_budget)
         classifiers.extend(cls)
         k0 += kb
@@ -588,6 +626,104 @@ def train_parallel(hla_table, geno_data, n_classifiers: int = 100,
         if auto_save:
             model.save(auto_save)
     return model
+
+
+def train_distributed(hla_table, geno_data, n_classifiers: int = 100,
+                      seed: int = 100, coordinator: Optional[str] = None,
+                      num_processes: Optional[int] = None,
+                      process_id: Optional[int] = None,
+                      **kwargs) -> AttrBagModel:
+    """Ensemble training over processes (torch.distributed, gloo).
+
+    Each process trains a fixed contiguous share of the ensemble
+    (parallel/mesh.py::classifier_range) with `train_parallel` on its own
+    device (`process_device` of kwargs' ``device``, default "cuda": card
+    rank % device_count), then the classifiers are gathered and every
+    process returns the whole model, without matching. The classifiers'
+    random streams come from their ids, so any number of processes trains
+    the classifiers of one process. Single process: train_parallel.
+    Replaces hlaParallelAttrBagging's PSOCK-cluster job farm (reference
+    R/HIBAG.R:293-451, R/DataUtilities.R:124-213). kwargs go to
+    train_parallel (mode, batch, mesh, hcap, ...).
+    """
+    from ..parallel.mesh import (classifier_range, distributed_init,
+                                 gather_classifiers, process_device)
+
+    pi, pc = distributed_init(coordinator, num_processes, process_id)
+    kwargs.update(device=process_device(kwargs.get("device", "cuda"), pi),
+                  with_matching=False)
+    share = classifier_range(n_classifiers, pi, pc)
+    local = train_parallel(hla_table, geno_data, n_classifiers=len(share),
+                           seed=seed, first_id=share.start, **kwargs)
+    return gather_classifiers(local, n_classifiers)
+
+
+def train_dynamic(hla_table, geno_data, n_classifiers: int = 100,
+                  seed: int = 100, work_dir: Optional[str] = None,
+                  job_size: int = 8, coordinator: Optional[str] = None,
+                  num_processes: Optional[int] = None,
+                  process_id: Optional[int] = None,
+                  **kwargs) -> AttrBagModel:
+    """Ensemble training over processes with dynamic load balance: the
+    reference's .DynamicClusterCall job farm (R/DataUtilities.R:124-213),
+    where the next job goes to whichever worker is free, so a slow or late
+    process never idles the others.
+
+    Each process claims the next `job_size` classifiers by creating a claim
+    file in `work_dir` with O_CREAT|O_EXCL (a filesystem all processes
+    share), trains them with `train_parallel` on its own device (as
+    `train_distributed`), and goes on until every batch is claimed; then
+    the classifiers are gathered and every process returns the whole model,
+    without matching. Which process trains a batch varies from run to run;
+    the classifiers do not, since their random streams come from their ids.
+    Raises if the gathered classifiers are fewer than `n_classifiers`
+    (stale claim files). kwargs go to train_parallel; its SNP and sample
+    filters (na_rm, mono_rm, maf) also build the merged model.
+    """
+    import tempfile
+
+    from ..parallel.mesh import (allgather_pickled, distributed_init,
+                                 process_device)
+
+    pi, pc = distributed_init(coordinator, num_processes, process_id)
+    kwargs.update(device=process_device(kwargs.get("device", "cuda"), pi),
+                  with_matching=False)
+    if work_dir is None:
+        if pc > 1:
+            raise ValueError("train_dynamic with several processes needs a "
+                             "shared work_dir for the claim files")
+        work_dir = tempfile.mkdtemp(prefix="hibag_dyn_")
+    os.makedirs(work_dir, exist_ok=True)
+
+    local: dict = {}
+    for ci, lo in enumerate(range(0, n_classifiers, job_size)):
+        try:
+            fd = os.open(os.path.join(work_dir, f"claim_{ci}"),
+                         os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+        except FileExistsError:
+            continue
+        os.write(fd, str(pi).encode())
+        os.close(fd)
+        hi = min(lo + job_size, n_classifiers)
+        part = train_parallel(hla_table, geno_data, n_classifiers=hi - lo,
+                              seed=seed, first_id=lo, **kwargs)
+        for off, c in enumerate(part.classifiers):
+            local[lo + off] = c
+
+    merged: dict = {}
+    for part_map in allgather_pickled(local):
+        merged.update(part_map)
+    if len(merged) != n_classifiers:
+        raise RuntimeError(
+            f"the claimed jobs gave {len(merged)}/{n_classifiers} "
+            f"classifiers: stale claim files in {work_dir}?")
+    filters = {k: kwargs[k] for k in ("na_rm", "mono_rm", "maf")
+               if k in kwargs}
+    # the merged model's SNPs and alleles: host data, no device work
+    ctx, alleles, _ = make_training_context(hla_table, geno_data,
+                                            device="cpu", **filters)
+    return _partial_model(ctx, alleles, hla_table, geno_data,
+                          [merged[k] for k in range(n_classifiers)])
 
 
 def train(hla_table, geno_data, n_classifiers: int = 100, mtry="sqrt",

@@ -315,7 +315,7 @@ def train_fused_batch(ctx, K: int, seed: int, mtry: int, prune: bool = True,
                       max_steps: int = 256, seg_steps=None, progress=None,
                       on_overflow: str = "warn", _ids=None,
                       freeze_max_batch=None, engine=None,
-                      mask_budget=None) -> list:
+                      mask_budget=None, mesh=None) -> list:
     """Train K classifiers with the fused growth; returns Classifiers.
 
     ctx: a models.train.TrainingContext (its tensors fix the device).
@@ -331,19 +331,52 @@ def train_fused_batch(ctx, K: int, seed: int, mtry: int, prune: bool = True,
     exact modes go up to RETRY_MAX_HCAP. ``seg_steps`` and ``progress`` as
     in `fused_grow_batch`; ``freeze_max_batch`` caps the classifiers of one
     resume batch. ``engine``: see `resolve_engine`. ``mask_budget``: bytes
-    of EM pair mask per classifier (models.em tiers).
+    of EM pair mask per classifier (models.em tiers); None gives each
+    MASK_TOTAL_BUDGET_BYTES // rows of each pass (a freeze resume or retry
+    of few classifiers keeps a larger mask resident, as in hibag_tpu).
+    ``mesh`` (an EnsembleMesh or a list of devices) splits the K
+    classifiers into shards (parallel/mesh.py::shard_bounds), each grown by
+    this function on its device with its own GrowState, freeze re-seats and
+    retries, the training data replicated (TrainingContext.on); K need not
+    be a multiple of the mesh size. A classifier's bootstrap and draws come
+    from its id, so placement does not change them. With a mesh, None gives
+    every pass of every shard MASK_TOTAL_BUDGET_BYTES // K of the whole
+    batch, so a shard's first pass takes the unsharded batch's mask tiers;
+    its resumes and retries may take a smaller tier than the unsharded
+    ones (whose budget is divided by their own rows) only where a packed
+    mask passes that budget. The shards' host loops take turns on the
+    interpreter lock (parallel/mesh.py), so a mesh is no faster than one
+    device; to train on several cards, run one process per card
+    (`train_distributed`, `train_dynamic`).
     """
+    from ..parallel.mesh import as_mesh, run_shards, shard_bounds
     from ..utils.rng import RRng
+    from .em import MASK_TOTAL_BUDGET_BYTES
     from .model import Classifier
     from .train import _init_haplotype
+
+    ids = (list(range(first_id, first_id + K)) if _ids is None
+           else list(_ids))
+    mesh = as_mesh(mesh)
+    if mesh is not None:
+        if mask_budget is None:
+            mask_budget = MASK_TOTAL_BUDGET_BYTES // max(K, 1)
+        shards = shard_bounds(mesh, K)
+        parts = run_shards([d for d, _, _ in shards], [
+            (lambda d=d, lo=lo, hi=hi: train_fused_batch(
+                ctx.on(d), hi - lo, seed, mtry, prune, hcap,
+                max_steps=max_steps, seg_steps=seg_steps, progress=progress,
+                on_overflow=on_overflow, _ids=ids[lo:hi],
+                freeze_max_batch=freeze_max_batch, engine=engine,
+                mask_budget=mask_budget))
+            for d, lo, hi in shards])
+        return [c for part in parts for c in part]
 
     dev = ctx.device
     engine = resolve_engine(engine, dev)
     N, P = ctx.n_samp, ctx.n_snp
     L = MAXNUM_SNP
     rare_prob = max(FRACTION_HAPLO / (2.0 * N), MIN_RARE_FREQ)
-    ids = (list(range(first_id, first_id + K)) if _ids is None
-           else list(_ids))
 
     Bs_real = np.stack([RRng((seed + 1000003 * ids[j]) % (2**31 - 1))
                         .bootstrap_counts(N) for j in range(K)])

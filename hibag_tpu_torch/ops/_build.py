@@ -23,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -98,9 +99,19 @@ def build() -> str:
     return out
 
 
-@functools.cache
+_LOAD_LOCK = threading.Lock()
+
+
 def load() -> ctypes.CDLL:
-    """The built library with every entry point's ctypes signature set."""
+    """The built library with every entry point's ctypes signature set;
+    built once per process, also when mesh shards ask for it from several
+    threads at once."""
+    with _LOAD_LOCK:
+        return _load()
+
+
+@functools.cache
+def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(build())
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.hibag_ens_acc.argtypes = [p] * 10 + [i] * 5 + [p]

@@ -18,6 +18,7 @@ CPU tensor it runs `ensemble_accumulate_ref`, the same math in torch.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -33,6 +34,15 @@ MAX_A = 128
 
 #: kernel launches made by `ensemble_accumulate`; never the plain version's
 LAUNCHES = 0
+_COUNT_LOCK = threading.Lock()
+
+
+def _count():
+    """One launch more, under a lock: a mesh's shards launch from
+    several threads."""
+    global LAUNCHES
+    with _COUNT_LOCK:
+        LAUNCHES += 1
 
 
 @dataclass(frozen=True)
@@ -177,7 +187,6 @@ def ensemble_accumulate(hap: PackedHaplotypes, g: torch.Tensor,
     """(ens [N, A, A], dmin [C, N], total [C, N]) for genotype codes g int8
     [C, N, 128] gathered to each classifier's SNP slots (3 = missing or
     padded) and classifier weights wgt float32 [C, N]."""
-    global LAUNCHES
     _check(hap, g, wgt, n_alleles)
     if g.device.type == "cpu":
         return ensemble_accumulate_ref(hap, g, wgt, n_alleles, majority)
@@ -202,7 +211,7 @@ def ensemble_accumulate(hap: PackedHaplotypes, g: torch.Tensor,
     if err != 0:
         msg = lib.hibag_cuda_error_string(err).decode()
         raise RuntimeError(f"ensemble kernel launch failed: {msg} ({err})")
-    LAUNCHES += 1
+    _count()
     return ens, dmin, total
 
 

@@ -22,6 +22,8 @@ ops.scoring.posterior_scores. `posterior_scores_kernel` (one classifier) and
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from ..constants import MAXNUM_SNP
@@ -52,6 +54,15 @@ RECORD_BYTES = 256 * 1024 ** 2
 
 #: kernel launches made by `ensemble_scores`; never the plain version's
 LAUNCHES = 0
+_COUNT_LOCK = threading.Lock()
+
+
+def _count():
+    """One launch more, under a lock: a mesh's shards launch from
+    several threads."""
+    global LAUNCHES
+    with _COUNT_LOCK:
+        LAUNCHES += 1
 
 
 def check_limits(n_slots: int, n_alleles: int) -> None:
@@ -100,7 +111,6 @@ def ensemble_scores(hap: PackedHaplotypes, g: torch.Tensor, n_alleles: int,
     [C, N, 128] gathered to each classifier's SNP slots (3 = missing or
     padded). `smem_budget` and `record_budget` choose the kernel's route
     (`scores_plan`); every route gives bitwise the same results."""
-    global LAUNCHES
     _check(hap, g, n_alleles)
     if g.device.type == "cpu":
         return ensemble_scores_ref(hap, g, n_alleles)
@@ -135,7 +145,7 @@ def ensemble_scores(hap: PackedHaplotypes, g: torch.Tensor, n_alleles: int,
     if err != 0:
         msg = lib.hibag_cuda_error_string(err).decode()
         raise RuntimeError(f"scoring kernel launch failed: {msg} ({err})")
-    LAUNCHES += 1
+    _count()
     return S, dmin, total
 
 

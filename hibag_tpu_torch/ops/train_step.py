@@ -17,6 +17,8 @@ outputs (no float atomics).
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from ..constants import LOG_MIN_RARE_FREQ, MAXNUM_SNP
@@ -61,6 +63,14 @@ EM_SMEM_BYTES = 224 * 1024
 #: kernel launches made by each wrapper; never the plain versions'
 LAUNCHES = {"em_estep": 0, "em_estep_packed": 0,
             "evaluate_candidates_kernel": 0}
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(name):
+    """One launch more, under a lock: a mesh's shards launch from
+    several threads."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def _same_device(*xs):
@@ -193,7 +203,7 @@ def em_estep(fA, fB, mask, g_cand, B, total_n):
     if fA.device.type == "cpu":
         return em_estep_ref(fA, fB, mask, g_cand, B, total_n)
     out = _em_launch(fA, fB, mask, g_cand, B, total_n)
-    LAUNCHES["em_estep"] += 1
+    _count("em_estep")
     return out
 
 
@@ -208,7 +218,7 @@ def em_estep_packed(fA, fB, packed, g_cand, B, total_n, *,
         return em_estep_packed_ref(fA, fB, packed, g_cand, B, total_n)
     out = _em_packed_launch(fA, fB, packed, g_cand, B, total_n, smem_budget,
                             pair_list)
-    LAUNCHES["em_estep_packed"] += 1
+    _count("em_estep_packed")
     return out
 
 
@@ -392,7 +402,7 @@ def evaluate_candidates_kernel(bits, allele, fA, fB, g_cand, geno_sel, a1,
             acc.data_ptr(), ll.data_ptr(), K, H, N, C, A, M, S, plan,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_if_failed(lib, err, "evaluation")
-    LAUNCHES["evaluate_candidates_kernel"] += 1
+    _count("evaluate_candidates_kernel")
     return acc, ll
 
 

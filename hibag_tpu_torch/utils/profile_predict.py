@@ -35,8 +35,7 @@ LAYERS = (
     ("hibag_tpu_torch.models.predict", "_gather_codes", "gather"),
     ("hibag_tpu_torch.models.predict", "ensemble_accumulate", "ens_kernel"),
     ("hibag_tpu_torch.models.predict", "ensemble_scores", "scan_kernel"),
-    ("hibag_tpu_torch.models.predict", "_predict_block", "scan_block"),
-    ("hibag_tpu_torch.models.predict", "_predict_block_ens", "ens_block"),
+    ("hibag_tpu_torch.models.predict", "_predict_block_mesh", "block"),
     ("hibag_tpu_torch.models.predict", "_pack_stats", "stats"),
 )
 

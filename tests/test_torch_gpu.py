@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on a card: the
 ensemble kernel (ops/ens_acc.py), the scoring kernel (ops/post_scores.py)
 and the training-step kernels (ops/train_step.py); prediction of a wide
-model, fused and host training and out_of_bag through them.
+model, fused and host training and out_of_bag through them; prediction and
+host training split over two shards on one card.
 
 Imports neither jax nor hibag_tpu, so that on a machine with a card and no
 jax it runs as
@@ -458,6 +459,57 @@ def test_host_training_on_the_card(cuda, host_panel, monkeypatch):
     assert predict(m1, hg, device="cuda").accuracy_vs(ht.allele1,
                                                       ht.allele2) > 0.9
     chip_smoke._check_host_step(first[0], "host step 1")
+
+
+@pytest.mark.gpu
+def test_predict_mesh_on_the_card(cuda):
+    """predict(devices=["cuda:0", "cuda:0"]): one ensemble-kernel launch per
+    shard and block, two calls bitwise equal, calls equal predict()'s on
+    one device and postprob at rtol 2e-4."""
+    from hibag_tpu_torch import predict
+    from hibag_tpu_torch.utils.synthetic import (synthetic_cohort,
+                                                 synthetic_model)
+
+    model, pool = synthetic_model(5, n_classifiers=9, n_snp=300, n_alleles=12)
+    geno, _, _ = synthetic_cohort(model, pool, 200, 6)
+    base = predict(model, geno, device="cuda", with_prob=True)
+    mesh = [f"cuda:{cuda.index}"] * 2
+    before = ens_acc.LAUNCHES
+    r1 = predict(model, geno, devices=mesh, with_prob=True)
+    assert ens_acc.LAUNCHES == before + 2
+    r2 = predict(model, geno, devices=mesh, with_prob=True)
+    for name in ("allele1", "allele2", "prob", "matching", "postprob"):
+        assert np.array_equal(getattr(r1, name), getattr(r2, name)), name
+    assert np.array_equal(r1.allele1, base.allele1)
+    assert np.array_equal(r1.allele2, base.allele2)
+    np.testing.assert_allclose(r1.postprob, base.postprob, rtol=2e-4,
+                               atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_step_kernels_split_over_classifiers(cuda):
+    """The evaluation, int8 EM and packed EM kernels over K=8 are bitwise
+    two launches over K=4 (chip_smoke.py phase 11 (c))."""
+    chip_smoke._check_batch_split(cuda)
+
+
+@pytest.mark.gpu
+def test_host_training_on_a_mesh_on_the_card(cuda, host_panel):
+    """train_parallel(mode="host", mesh=[card, card]) equals the unsharded
+    run on the card: SNPs, haplotypes and OOB exactly, frequencies at rtol
+    1e-5."""
+    from hibag_tpu_torch import train_parallel
+
+    (table, geno), _ = host_panel
+    kw = dict(n_classifiers=3, batch=3, seed=4, verbose=False, mode="host",
+              with_matching=False)
+    one = train_parallel(table, geno, device="cuda", **kw)
+    before = dict(ts.LAUNCHES)
+    two = train_parallel(table, geno, mesh=[cuda, cuda], **kw)
+    assert (ts.LAUNCHES["evaluate_candidates_kernel"]
+            > before["evaluate_candidates_kernel"])
+    chip_smoke._held_to("host mesh", chip_smoke._classifier_tuples(two),
+                        chip_smoke._classifier_tuples(one))
 
 
 @pytest.mark.gpu

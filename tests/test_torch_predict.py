@@ -146,21 +146,26 @@ def test_npz_from_hibag_tpu_and_jax_prepared_route(case, tmp_path):
                     (direct.hb, direct.freq, direct.allele, direct.nh)):
         assert torch.equal(x, y)
     codes, _ = hibag_tpu_torch.align_to_model(loaded, geno)
-    args = (torch.from_numpy(packed.snp_index),
-            torch.from_numpy(packed.snp_weight), torch.from_numpy(codes), A)
-    for x, y in zip(port_predict._predict_block_ens(via_jax, *args),
-                    port_predict._predict_block_ens(direct, *args)):
+    cpu = torch.device("cpu")
+    si = torch.from_numpy(packed.snp_index)
+    args = ({cpu: torch.from_numpy(packed.snp_weight)},
+            {cpu: torch.from_numpy(codes)}, A, "prob", True)
+    for x, y in zip(
+            port_predict._predict_block_mesh([(cpu, via_jax, si)], *args),
+            port_predict._predict_block_mesh([(cpu, direct, si)], *args)):
         assert torch.equal(x, y)
 
 
 def test_unsupported_requests_raise(case):
-    """mesh/devices raise, a model wider than the ensemble kernel takes
-    predicts through the scan engine and agrees with hibag_tpu.predict, a
-    model beyond the scoring kernel's limits raises, and device="cuda"
-    without a card raises."""
+    """devices= naming two cards raises on a machine with fewer, a model
+    wider than the ensemble kernel takes predicts through the scan engine
+    and agrees with hibag_tpu.predict, a model beyond the scoring kernel's
+    limits raises, and device="cuda" without a card raises."""
     model, jmodel, geno, jgeno, _ = case
-    with pytest.raises(NotImplementedError):
-        hibag_tpu_torch.predict(model, geno, device="cpu", devices=[0, 1])
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(RuntimeError):
+            hibag_tpu_torch.predict(model, geno, device="cpu",
+                                    devices=[0, 1])
     names = [f"{i:03d}:01" for i in range(129)]
     wide, jwide = model.subset_classifiers(1), jmodel.subset_classifiers(1)
     wide.hla_alleles, jwide.hla_alleles = names, list(names)

@@ -224,16 +224,16 @@ def test_train_matches_hibag_tpu(panel):
 
 
 def test_host_trainer_arguments(panel):
-    """hap_bucket= reaches the context; mesh= raises NotImplementedError
-    (multi-device training is not ported); unknown modes, dtypes and
-    eval modes raise."""
+    """hap_bucket= reaches the context; a mesh= that is neither an
+    EnsembleMesh nor a list of devices raises TypeError; unknown modes,
+    dtypes and eval modes raise."""
     (table, geno), _ = panel
     _, tctx, mtry = _contexts(panel, hap_bucket=16)
     kw = dict(n_classifiers=1, verbose=False, with_matching=False,
               device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="list of devices"):
         hibag_tpu_torch.train_parallel(table, geno, mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="list of devices"):
         ttrain.train_parallel_batch(tctx, [RRng(1)], mtry, mesh=object())
     with pytest.raises(ValueError, match="mode"):
         hibag_tpu_torch.train_parallel(table, geno, mode="mesh", **kw)
