@@ -85,6 +85,8 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "launch_marks.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -739,11 +741,12 @@ __global__ void em_packed_finish_kernel(
 
 template <bool kShared>
 cudaError_t launch_packed(const PkArgs& p, int K, size_t smem,
-                          cudaStream_t st) {
+                          cudaStream_t st, void* ev0) {
   cudaError_t err = cudaFuncSetAttribute(
       em_packed_kernel<kShared>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
+  if ((err = launch_mark(ev0, st)) != cudaSuccess) return err;
   em_packed_kernel<kShared><<<dim3(p.G, K), kPkThreads, smem, st>>>(p);
   return cudaGetLastError();
 }
@@ -756,12 +759,14 @@ int finish_blocks(size_t n) {
 
 // mask: int8 [K,S,H,H]; fA, fB: f32 [K,C,H]; gc: int8 [K,C,S]; B: f32 [K,S];
 // part: f32 [K,G,2,C,H] and dllp: f32 [K,G,C] scratch;
-// dfA, dfB: f32 [K,C,H]; dll: f32 [K,C].
+// dfA, dfB: f32 [K,C,H]; dll: f32 [K,C]; ev0, ev1: launch marks or null
+// (launch_marks.cuh).
 extern "C" int hibag_em_estep(const void* mask, const void* fA, const void* fB,
                               const void* gc, const void* B, void* part,
                               void* dllp, void* dfA, void* dfB, void* dll,
                               int K, int S, int H, int C, int G,
-                              float total_n, void* stream) {
+                              float total_n, void* stream, void* ev0,
+                              void* ev1) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (H % 32 || H > 65536 || C < 1 || C > 64)
     return (int)cudaErrorInvalidValue;
@@ -774,6 +779,7 @@ extern "C" int hibag_em_estep(const void* mask, const void* fA, const void* fB,
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid(G, K);
+  if ((err = launch_mark(ev0, st)) != cudaSuccess) return (int)err;
   em_estep_kernel<<<grid, kThreads, smem, st>>>(
       static_cast<const uint8_t*>(mask), static_cast<const float*>(fA),
       static_cast<const float*>(fB), static_cast<const int8_t*>(gc),
@@ -786,7 +792,8 @@ extern "C" int hibag_em_estep(const void* mask, const void* fA, const void* fB,
       static_cast<const float*>(fA), static_cast<const float*>(fB),
       static_cast<float*>(dfA), static_cast<float*>(dfB),
       static_cast<float*>(dll), K, C, H, G, total_n);
-  return (int)cudaGetLastError();
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  return (int)launch_mark(ev1, st);
 }
 
 // Bytes of dynamic shared memory of the packed kernel at H slots, C
@@ -801,13 +808,15 @@ extern "C" long long hibag_em_packed_smem(int H, int C, int lcap,
 // aligned; fA, fB: f32 [K,C,H]; gc: int8 [K,C,S]; B: f32 [K,S]; part: f32
 // [K,G,2,C,H], dllp: f32 [K,G,C] and tmask: int32 [K,G,H/32] scratch (no
 // zeroing needed); dfA, dfB: f32 [K,C,H]; dll: f32 [K,C]. Block (g, k)
-// takes samples [g*R, (g+1)*R) of classifier k; lcap pairs a warp's list.
+// takes samples [g*R, (g+1)*R) of classifier k; lcap pairs a warp's list;
+// ev0, ev1: launch marks or null.
 extern "C" int hibag_em_packed(const void* mask, const void* fA,
                                const void* fB, const void* gc, const void* B,
                                void* part, void* dllp, void* tmask, void* dfA,
                                void* dfB, void* dll, int K, int S, int H,
                                int C, int G, int R, int lcap, int shared,
-                               float total_n, void* stream) {
+                               float total_n, void* stream, void* ev0,
+                               void* ev1) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (H % 32 || H > 65536 || C < 1 || C > 64 || R < 1 || lcap < 0
       || lcap > 65535 || (size_t)G * R < (size_t)S)
@@ -828,8 +837,8 @@ extern "C" int hibag_em_packed(const void* mask, const void* fA,
   p.R = R;
   p.lcap = lcap;
   const size_t smem = (size_t)hibag_em_packed_smem(H, C, lcap, shared);
-  const cudaError_t err = shared ? launch_packed<true>(p, K, smem, st)
-                                 : launch_packed<false>(p, K, smem, st);
+  cudaError_t err = shared ? launch_packed<true>(p, K, smem, st, ev0)
+                           : launch_packed<false>(p, K, smem, st, ev0);
   if (err != cudaSuccess) return (int)err;
   em_packed_finish_kernel<<<finish_blocks((size_t)K * C * H), 256, 0, st>>>(
       static_cast<const float*>(part), static_cast<const float*>(dllp),
@@ -837,5 +846,6 @@ extern "C" int hibag_em_packed(const void* mask, const void* fA,
       static_cast<const float*>(fB), static_cast<float*>(dfA),
       static_cast<float*>(dfB), static_cast<float*>(dll), K, C, H, G,
       total_n);
-  return (int)cudaGetLastError();
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  return (int)launch_mark(ev1, st);
 }

@@ -40,6 +40,7 @@
 //    that a sample needs little shared memory.
 // Limits: H <= 1024 stored haplotype slots and A <= 128 alleles.
 
+#include "launch_marks.cuh"
 #include "pair_cells.cuh"
 
 namespace {
@@ -439,7 +440,8 @@ extern "C" int hibag_ens_acc(const void* hb, const void* freq,
                              const void* allele, const void* nh, const void* g,
                              const void* wgt, const void* pen_tab, void* ens,
                              void* dmin, void* total, int C, int H, int N,
-                             int A, int majority, void* stream) {
+                             int A, int majority, void* stream, void* ev0,
+                             void* ev1) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   const size_t psmem = pairs_smem(H, A);
@@ -448,6 +450,7 @@ extern "C" int hibag_ens_acc(const void* hb, const void* freq,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)psmem);
     if (err != cudaSuccess) return (int)err;
+    if ((err = launch_mark(ev0, st)) != cudaSuccess) return (int)err;
     ens_acc_pairs_kernel<<<N, kPT, psmem, st>>>(
         static_cast<const uint4*>(hb), static_cast<const float*>(freq),
         static_cast<const int*>(allele), static_cast<const int*>(nh),
@@ -455,7 +458,8 @@ extern "C" int hibag_ens_acc(const void* hb, const void* freq,
         static_cast<const float*>(pen_tab), static_cast<float*>(ens),
         static_cast<float*>(dmin), static_cast<float*>(total), C, H, N, A,
         majority);
-    return (int)cudaGetLastError();
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    return (int)launch_mark(ev1, st);
   }
   // as many samples a block as fit in the opt-in shared memory (227 KiB)
   const size_t per = sample_bytes(H, A), fixed = kTabLen * sizeof(float);
@@ -465,6 +469,7 @@ extern "C" int hibag_ens_acc(const void* hb, const void* freq,
   err = cudaFuncSetAttribute(
       ens_acc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
+  if ((err = launch_mark(ev0, st)) != cudaSuccess) return (int)err;
   ens_acc_kernel<<<(N + groups - 1) / groups, kG * groups, smem, st>>>(
       static_cast<const uint4*>(hb), static_cast<const float*>(freq),
       static_cast<const int*>(allele), static_cast<const int*>(nh),
@@ -472,7 +477,8 @@ extern "C" int hibag_ens_acc(const void* hb, const void* freq,
       static_cast<const float*>(pen_tab), static_cast<float*>(ens),
       static_cast<float*>(dmin), static_cast<float*>(total), C, H, N, A,
       majority);
-  return (int)cudaGetLastError();
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  return (int)launch_mark(ev1, st);
 }
 
 extern "C" const char* hibag_cuda_error_string(int err) {

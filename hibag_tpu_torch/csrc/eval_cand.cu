@@ -72,6 +72,7 @@
 #include <climits>
 #include <cstdint>
 
+#include "launch_marks.cuh"
 #include "pair_cells.cuh"
 
 namespace {
@@ -408,11 +409,13 @@ __global__ void eval_finish_kernel(const int* __restrict__ accp,
 }
 
 template <bool kShared>
-cudaError_t launch(const Args& p, dim3 grid, size_t smem, cudaStream_t st) {
+cudaError_t launch(const Args& p, dim3 grid, size_t smem, cudaStream_t st,
+                   void* ev0) {
   cudaError_t err = cudaFuncSetAttribute(
       eval_kernel<kShared>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
+  if ((err = launch_mark(ev0, st)) != cudaSuccess) return err;
   eval_kernel<kShared><<<grid, kThreads, smem, st>>>(p);
   return cudaGetLastError();
 }
@@ -432,8 +435,8 @@ extern "C" long long hibag_eval_smem(int M, int A, int C, int plan) {
 // accp: int32 [K,C,N], llp: f32 [K,C,N] scratch; gscratch: per block
 // 4 * block_scratch(M, A, Cp, plan) bytes under plans 0 and -1 (else null;
 // ops/train_step.py::eval_scratch_bytes);
-// acc: int32 [K,C]; ll: f32 [K,C]. A block takes S samples of one
-// classifier; M >= max nok, a multiple of 4.
+// acc: int32 [K,C]; ll: f32 [K,C]; ev0, ev1: launch marks or null. A block
+// takes S samples of one classifier; M >= max nok, a multiple of 4.
 extern "C" int hibag_eval_cand(const void* hb, const void* al, const void* nok,
                                const void* fq, const void* gcand,
                                const void* geno, const void* a1,
@@ -441,7 +444,7 @@ extern "C" int hibag_eval_cand(const void* hb, const void* al, const void* nok,
                                const void* pen_tab, void* accp, void* llp,
                                void* gscratch, void* acc, void* ll,
                                int K, int H, int N, int C, int A, int M, int S,
-                               int plan, void* stream) {
+                               int plan, void* stream, void* ev0, void* ev1) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M % 4 || S < 1 || H > 46340 || plan < kPlanRecords
       || plan > kPlanShared || (plan != kPlanShared && !gscratch))
@@ -471,13 +474,14 @@ extern "C" int hibag_eval_cand(const void* hb, const void* al, const void* nok,
   p.plan = plan;
   const size_t smem = (size_t)hibag_eval_smem(M, A, C, plan);
   const dim3 grid((N + S - 1) / S, K);
-  const cudaError_t err = plan == kPlanShared
-                              ? launch<true>(p, grid, smem, st)
-                              : launch<false>(p, grid, smem, st);
+  cudaError_t err = plan == kPlanShared
+                        ? launch<true>(p, grid, smem, st, ev0)
+                        : launch<false>(p, grid, smem, st, ev0);
   if (err != cudaSuccess) return (int)err;
   const int KC = K * C;
   eval_finish_kernel<<<(KC + 255) / 256, 256, 0, st>>>(
       static_cast<const int*>(accp), static_cast<const float*>(llp),
       static_cast<int*>(acc), static_cast<float*>(ll), KC, N);
-  return (int)cudaGetLastError();
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  return (int)launch_mark(ev1, st);
 }

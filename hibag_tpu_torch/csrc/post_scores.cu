@@ -41,6 +41,7 @@
 // Limits: H <= 46,340 stored haplotype slots (a cell's pair count is an
 // int32), A <= 1024 alleles.
 
+#include "launch_marks.cuh"
 #include "pair_cells.cuh"
 
 namespace {
@@ -190,7 +191,8 @@ extern "C" int hibag_post_scores(const void* hb, const void* freq,
                                  const void* g, const void* pen_tab, void* S,
                                  void* dmin, void* total, void* dc_scratch,
                                  void* rec_scratch, int C, int H, int N,
-                                 int A, int NB, void* stream) {
+                                 int A, int NB, void* stream, void* ev0,
+                                 void* ev1) {
   if (H > 46340 || NB < 1 || NB > N || (!rec_scratch && NB != N))
     return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(rec_scratch ? 0 : H, A);
@@ -199,12 +201,15 @@ extern "C" int hibag_post_scores(const void* hb, const void* freq,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(NB, C), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((err = launch_mark(ev0, st)) != cudaSuccess) return (int)err;
+  kernel<<<dim3(NB, C), kThreads, smem, st>>>(
       static_cast<const uint4*>(hb), static_cast<const float*>(freq),
       static_cast<const int*>(allele), static_cast<const int*>(nh),
       static_cast<const int8_t*>(g), static_cast<const float*>(pen_tab),
       static_cast<float*>(S), static_cast<float*>(dmin),
       static_cast<float*>(total), static_cast<unsigned short*>(dc_scratch),
       static_cast<uint4*>(rec_scratch), H, N, A);
-  return (int)cudaGetLastError();
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  return (int)launch_mark(ev1, st);
 }

@@ -28,6 +28,7 @@ import torch
 from ..constants import (EM_INIT_VAL_FRAC, EM_MAX_ITERATIONS,
                          LOG_MIN_RARE_FREQ, MIN_RARE_FREQ)
 from ..ops.scoring import pair_distance
+from ..utils import trace
 
 BIG = 1e9
 
@@ -85,15 +86,16 @@ def match_pairs(bits, valid, allele, geno_sel, a1, a2, lo=0, hi=None):
     K, S = geno_sel.shape[:2]
     hi = S if hi is None else hi
     H = bits.shape[1]
-    out = torch.empty((K, hi - lo, H, H), dtype=torch.bool,
-                      device=bits.device)
-    c, _ = _chunk_plan(S, H * H, 4 * 1024 * 1024)
-    for k in range(K):
-        for s in range(lo, hi, c):
-            e = min(s + c, hi)
-            out[k, s - lo:e - lo] = _match_chunk(
-                bits[k], valid[k], allele[k], geno_sel[k, s:e], a1[s:e],
-                a2[s:e])
+    with trace.span("train.match", bits):
+        out = torch.empty((K, hi - lo, H, H), dtype=torch.bool,
+                          device=bits.device)
+        c, _ = _chunk_plan(S, H * H, 4 * 1024 * 1024)
+        for k in range(K):
+            for s in range(lo, hi, c):
+                e = min(s + c, hi)
+                out[k, s - lo:e - lo] = _match_chunk(
+                    bits[k], valid[k], allele[k], geno_sel[k, s:e], a1[s:e],
+                    a2[s:e])
     return out
 
 
@@ -120,13 +122,14 @@ def match_pairs_packed(bits, valid, allele, geno_sel, a1, a2):
     never exists whole."""
     K, S = geno_sel.shape[:2]
     H = bits.shape[1]
-    out = torch.empty((K, S, H, H // 8), dtype=torch.uint8,
-                      device=bits.device)
-    c, _ = _chunk_plan(S, H * H, 4 * 1024 * 1024)
-    for s in range(0, S, c):
-        e = min(s + c, S)
-        out[:, s:e] = _pack_mask(match_pairs(bits, valid, allele, geno_sel,
-                                             a1, a2, s, e))
+    with trace.span("train.match", bits):
+        out = torch.empty((K, S, H, H // 8), dtype=torch.uint8,
+                          device=bits.device)
+        c, _ = _chunk_plan(S, H * H, 4 * 1024 * 1024)
+        for s in range(0, S, c):
+            e = min(s + c, S)
+            out[:, s:e] = _pack_mask(match_pairs(bits, valid, allele,
+                                                 geno_sel, a1, a2, s, e))
     return out
 
 
@@ -310,7 +313,18 @@ def em_all_candidates(freq0, valid, bits, allele, geno_sel, a1, a2, B,
     (done ones): they stop after the first step.
 
     Returns (fA [K, C, H], fB [K, C, H], loglik [K, C], n_iter [K]).
+    Traced as the span ``train.em``: each E-step counts one
+    ``train.em_iterations`` and each convergence check, a blocking read of
+    the device, one ``host_syncs``.
     """
+    with trace.span("train.em", freq0):
+        return _em_loop(freq0, valid, bits, allele, geno_sel, a1, a2, B,
+                        g_new, afreq, total_n, reltol, mask_budget, engine,
+                        skip)
+
+
+def _em_loop(freq0, valid, bits, allele, geno_sel, a1, a2, B, g_new, afreq,
+             total_n, reltol, mask_budget, engine, skip):
     K, C = g_new.shape[:2]
     v = valid.to(freq0.dtype)
     # DoubleHaplosInitFreq (src/LibHLA.cpp:447-459): p0*f + eps, p1*f + eps
@@ -321,6 +335,7 @@ def em_all_candidates(freq0, valid, bits, allele, geno_sel, a1, a2, B,
     estep = _make_estep(valid, bits, allele, geno_sel, a1, a2, B, g_new,
                         total_n, mask_budget, engine)
     fA, fB, ll = estep(fA, fB)
+    trace.count("train.em_iterations")
     tol = reltol * (ll.abs() + reltol)
     done = torch.zeros((K, C), dtype=torch.bool, device=fA.device)
     if skip is not None:
@@ -328,9 +343,11 @@ def em_all_candidates(freq0, valid, bits, allele, geno_sel, a1, a2, B,
     it = torch.ones(K, dtype=torch.int64, device=fA.device)
     while True:
         active = ~done.all(dim=1) & (it <= EM_MAX_ITERATIONS)
+        trace.count("host_syncs")
         if not bool(active.any()):
             break
         fA_new, fB_new, ll_new = estep(fA, fB)
+        trace.count("train.em_iterations")
         upd = active[:, None] & ~done
         newly = (ll_new - ll).abs() <= tol
         fA = torch.where(upd[..., None], fA_new, fA)

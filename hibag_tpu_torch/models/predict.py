@@ -46,6 +46,7 @@ from ..ops import ens_acc, post_scores
 from ..ops.ens_acc import PackedHaplotypes, ensemble_accumulate
 from ..ops.post_scores import ensemble_scores
 from ..ops.scoring import majority_hits, posterior_scores, unordered_from_S
+from ..utils import trace
 from .convert import ensemble_from_packed
 from .model import AttrBagModel, IdCache
 
@@ -61,8 +62,8 @@ def _log_match(w, total, dmin):
 #: classifiers per launch of the scan engine's scoring kernel: a launch is
 #: cchunk * n blocks of one (classifier, sample) each, and its
 #: [cchunk, n, A, A] output sizes the block. The smallest value within 2% of
-#: the fastest in utils/profile_predict.py's comparison of 1, 2, 4, 8 and 16
-#: on its wide cell (PERF.md)
+#: the fastest of 1, 2, 4, 8 and 16 on a wide 160-allele model on an H100
+#: (CHANGES.md)
 SCAN_CCHUNK = 8
 
 
@@ -222,12 +223,13 @@ def _predict_block_mesh(shards, snp_weight, geno, n_alleles, vote, use_ens):
     from ..parallel.mesh import run_shards
 
     def run(dev, hap, si):
-        if use_ens:
-            ens, lm, w = _ens_core(hap, si, snp_weight[dev], geno[dev],
-                                   n_alleles, vote)
-            return ens, _ens_wsum(w, vote), lm, w
-        return _scan_raw(hap, si, snp_weight[dev], geno[dev], n_alleles,
-                         vote)
+        with trace.span("predict.block", dev):
+            if use_ens:
+                ens, lm, w = _ens_core(hap, si, snp_weight[dev], geno[dev],
+                                       n_alleles, vote)
+                return ens, _ens_wsum(w, vote), lm, w
+            return _scan_raw(hap, si, snp_weight[dev], geno[dev], n_alleles,
+                             vote)
 
     parts = run_shards([d for d, _, _ in shards],
                        [(lambda s=s: run(*s)) for s in shards])
@@ -374,6 +376,9 @@ def predict(model: AttrBagModel, data, vote: str = "prob",
     device (`_predict_block_mesh`); `device` is then not read. Without
     them, `device` is a mesh of one shard. float64 takes no mesh
     (ValueError).
+    Traced (utils/trace.py) as the root span ``predict.call`` holding
+    ``predict.align``, ``predict.prepare``, a ``predict.block`` per block
+    and shard, a ``predict.fetch`` per block and ``predict.finalize``.
     """
     if type is not None:
         if type not in ("response+dosage", "response", "prob",
@@ -393,30 +398,67 @@ def predict(model: AttrBagModel, data, vote: str = "prob",
             raise ValueError("dtype=float64 prediction is single-device only")
         dev = resolve_device(device)
     else:
-        from ..parallel.mesh import as_mesh, ensemble_mesh, shard_bounds
+        from ..parallel.mesh import as_mesh, ensemble_mesh
         mesh = ensemble_mesh([device]) if mesh is None else as_mesh(mesh)
         dev = mesh.devices[0]
+    with trace.span("predict.call", dev):
+        with trace.span("predict.align", dev):
+            codes, sample_id, info = _align_input(model, data, match_type,
+                                                  same_strand)
+        with trace.span("predict.prepare", dev):
+            prep = _prepare(model, codes, mesh, dev, hap_bucket, engine,
+                            f64, block)
+        out = _run_blocks(prep, codes.shape[0], model.n_alleles, vote,
+                          not with_prob, f64, verbose)
+        with trace.span("predict.finalize", dev):
+            return _finalize(model, sample_id, info, out, with_dosage,
+                             with_prob)
+
+
+def _align_input(model, data, match_type, same_strand):
+    """(codes uint8 [N, P_model], sample ids, alignment info or None) of
+    `data`, an SNPGenoData aligned to the model or a code matrix."""
     from ..data.geno import SNPGenoData, align_to_model
 
     if isinstance(data, SNPGenoData):
         codes, info = align_to_model(model, data, match_type=match_type,
                                      same_strand=same_strand)
-        sample_id = data.sample_id
         if info["missing_fraction"] > 0.5:
             import warnings
             warnings.warn(
                 f"More than 50% of model SNPs are missing in the target "
                 f"({info['missing_fraction']:.1%}) — imputation may be unreliable.")
-    else:
-        codes = np.asarray(data, dtype=np.uint8)
-        sample_id = np.arange(codes.shape[0]).astype(object)
-        info = None
+        return codes, data.sample_id, info
+    codes = np.asarray(data, dtype=np.uint8)
+    return codes, np.arange(codes.shape[0]).astype(object), None
 
+
+@dataclass
+class _Prepared:
+    """What the blocks of one predict() call run on: the float64 ensemble
+    `hap` and slots `si` (f64), else the mesh's `shards` (device, hap,
+    snp_index); the engine; samples per block; and, by device, the cohort's
+    codes and the SNP weights (copied to each device once; blocks are
+    slices)."""
+
+    hap: Optional[tuple]
+    si: Optional[torch.Tensor]
+    shards: list
+    use_ens: bool
+    block: int
+    on: dict
+    dev: torch.device
+
+
+def _prepare(model, codes, mesh, dev, hap_bucket, engine, f64, block):
+    """The model packed (memoized), the ensemble in the kernels' layout on
+    each device, the block size and the cohort's host-to-device copy."""
     packed = model.pack(hap_bucket=hap_bucket,
                         dtype=np.float64 if f64 else np.float32)
     N = codes.shape[0]
     A = model.n_alleles
     C = model.n_classifiers
+    hap = si = None
     if f64:
         hap = tuple(torch.from_numpy(x).to(dev) for x in (
             packed.hap_bits, packed.hap_freq, packed.hap_allele))
@@ -425,6 +467,7 @@ def predict(model: AttrBagModel, data, vote: str = "prob",
         si = torch.from_numpy(packed.snp_index).to(dev)
         shards = []
     else:
+        from ..parallel.mesh import shard_bounds
         shards = [(d, _prepare_ensemble(packed, d, lo, hi),
                    torch.from_numpy(packed.snp_index[lo:hi]).to(d))
                   for d, lo, hi in shard_bounds(mesh, C)]
@@ -443,7 +486,22 @@ def predict(model: AttrBagModel, data, vote: str = "prob",
         block = _default_block(N, C, A, Hm, dev, use_ens, SCAN_CCHUNK, f64)
     block = max(1, min(block, N))
 
-    response = not with_prob
+    codes = np.ascontiguousarray(codes)
+    if dev.type != "cpu":
+        trace.count("h2d_bytes", codes.nbytes)
+    geno_all = torch.from_numpy(codes).to(dev)
+    on = {dev: (geno_all, sw)}
+    for d, _, _ in shards:
+        if d not in on:
+            on[d] = (geno_all.to(d), sw.to(d))
+    return _Prepared(hap, si, shards, use_ens, block, on, dev)
+
+
+def _run_blocks(prep, N, A, vote, response, f64, verbose):
+    """Every block of samples through the engine, each block's stats
+    fetched to the host as one buffer. Returns (dosage [N, A], best [N],
+    maxp [N]) under `response`, else the posterior tables [N, A, A]; then
+    matching [N] and wsum [N], float64 numpy."""
     if response:
         dosage_all = np.zeros((N, A), dtype=np.float64)
         best_all = np.zeros(N, dtype=np.int64)
@@ -455,23 +513,22 @@ def predict(model: AttrBagModel, data, vote: str = "prob",
     from ..utils.progress import Progress
     prog = Progress(N, info="Predicting", enabled=verbose)
 
-    # the cohort is copied to each device once; blocks are slices of it
-    geno_all = torch.from_numpy(np.ascontiguousarray(codes)).to(dev)
-    on = {dev: (geno_all, sw)}
-    for d, _, _ in shards:
-        if d not in on:
-            on[d] = (geno_all.to(d), sw.to(d))
+    block, on = prep.block, prep.on
     for start in range(0, N, block):
         if f64:
-            out = _predict_block(hap, si, sw, geno_all[start:start + block],
-                                 A, vote, SCAN_CCHUNK, f64)
+            with trace.span("predict.block", prep.dev):
+                out = _predict_block(prep.hap, prep.si, on[prep.dev][1],
+                                     on[prep.dev][0][start:start + block],
+                                     A, vote, SCAN_CCHUNK, f64)
         else:
             out = _predict_block_mesh(
-                shards, {d: x[1] for d, x in on.items()},
+                prep.shards, {d: x[1] for d, x in on.items()},
                 {d: x[0][start:start + block] for d, x in on.items()}, A,
-                vote, use_ens)
-        buf = _pack_stats(*out, response=response).to(
-            "cpu", torch.float64).numpy()
+                vote, prep.use_ens)
+        stats = _pack_stats(*out, response=response)
+        with trace.span("predict.fetch", prep.dev):
+            trace.count("host_syncs")
+            buf = stats.to("cpu", torch.float64).numpy()
         n_eff = buf.shape[0]
         # _pack_cols layout: head (dosage[A] + best + maxp, or ens[A*A])
         # then the three stats columns
@@ -489,8 +546,20 @@ def predict(model: AttrBagModel, data, vote: str = "prob",
         match_all[sl] = matching
         wsum_all[sl] = wsum
         prog.forward(n_eff)
+    head = (dosage_all, best_all, maxp_all) if response else (ens_all,)
+    return head + (match_all, wsum_all)
 
-    # --- host-side finalization ------------------------------------------
+
+def _finalize(model, sample_id, info, out, with_dosage, with_prob):
+    """The PredictionResult of `_run_blocks`'s arrays: allele names, the
+    best guess's probability, dosages and the triangular posteriors."""
+    response = not with_prob
+    A = model.n_alleles
+    if response:
+        dosage_all, best_all, maxp_all, match_all, wsum_all = out
+    else:
+        ens_all, match_all, wsum_all = out
+    N = match_all.shape[0]
     alleles = np.asarray(model.hla_alleles, dtype=object)
     if response:
         a1 = alleles[best_all // A].copy()

@@ -35,6 +35,7 @@ from ..constants import (FRACTION_HAPLO, GENO_MISSING, MAXNUM_SNP,
                          STOP_RELTOL_LOGLIK_ADDSNP)
 from ..data.allele import unique_alleles
 from ..device import resolve_device
+from ..utils import trace
 from ..utils.rng import RRng
 from .em import MASK_TOTAL_BUDGET_BYTES
 from .model import AttrBagModel, Classifier
@@ -128,8 +129,11 @@ class TrainingContext:
         self.geno_pad = np.pad(self.geno,
                                ((0, pad), (0, self.n_snp_pad - self.n_snp)),
                                constant_values=GENO_MISSING)
-        t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(
-            self.device)
+        def t(x):
+            x = np.ascontiguousarray(x)
+            if self.device.type != "cpu":
+                trace.count("h2d_bytes", x.nbytes)
+            return torch.from_numpy(x).to(self.device)
         self.geno_t = t(self.geno_pad.astype(np.int8))
         self.a1_t = t(np.pad(self.a1, (0, pad)).astype(np.int32))
         self.a2_t = t(np.pad(self.a2, (0, pad)).astype(np.int32))

@@ -31,7 +31,7 @@ import torch
 from ..constants import (FRACTION_HAPLO, GENO_MISSING, MAXNUM_SNP,
                          MIN_RARE_FREQ, PRUNE_RELTOL_LOGLIK,
                          STOP_RELTOL_LOGLIK_ADDSNP)
-from ..utils import threefry
+from ..utils import threefry, trace
 from .em import (F32_RELTOL, em_all_candidates, erase_rare,
                  evaluate_candidates)
 
@@ -129,13 +129,15 @@ def grow_step(bits, freq, allele, geno_sel, B, is_oob, g_cand, afreq, a1, a2,
         freq, freq > 0, bits, allele, geno_sel, a1, a2, B, g_cand, afreq,
         total_n, reltol=reltol, mask_budget=mask_budget, engine=engine,
         skip=skip)
-    fA, fB = erase_rare(fA, fB, rare_prob)
+    with trace.span("train.erase", fA):
+        fA, fB = erase_rare(fA, fB, rare_prob)
     if engine == "cuda":
         from ..ops.train_step import evaluate_candidates_kernel as evaluate
     else:
         evaluate = evaluate_candidates
-    acc, loss = evaluate(bits, allele, fA, fB, g_cand, geno_sel, a1, a2,
-                         is_oob, B, n_alleles)
+    with trace.span("train.eval", fA):
+        acc, loss = evaluate(bits, allele, fA, fB, g_cand, geno_sel, a1, a2,
+                             is_oob, B, n_alleles)
     return fA, fB, acc, loss
 
 
@@ -143,31 +145,45 @@ def _step(st: GrowState, B, is_oob, geno_T, a1, a2, rare_prob, total_n,
           n_alleles, mtry, prune, freeze, budget, mask_budget, engine):
     """One growth step of every classifier (hibag_tpu's step_one, vmapped).
     A done classifier takes the step as a no-op; outside freeze mode its
-    key still advances, in freeze mode a frozen or done one keeps it."""
+    key still advances, in freeze mode a frozen or done one keeps it.
+    Traced as the spans ``train.draw``, ``train.em`` (with ``train.match``),
+    ``train.erase``, ``train.eval`` and ``train.update``."""
+    dev = st.bits.device
+    with trace.span("train.draw", dev):
+        keys = threefry.split(st.key)                   # [K, 2, 2]
+        key, k1 = keys[:, 0], keys[:, 1]
+        cand_idx = threefry.draw_top_k(k1, st.pool, mtry)   # [K, Cm]
+        cand_in_pool = st.pool.gather(1, cand_idx)
+
+        g_cand = geno_T[cand_idx]                       # [K, Cm, N] int8
+        okg = g_cand <= 2
+        allele_cnt = torch.einsum(
+            "kcn,kn->kc", torch.where(okg, g_cand.to(torch.float32), 0.0), B)
+        valid_cnt = 2.0 * torch.einsum("kcn,kn->kc", okg.to(torch.float32),
+                                       B)
+        cand_ok = cand_in_pool & (allele_cnt > 0) & (allele_cnt < valid_cnt)
+        afreq = torch.where(cand_ok, allele_cnt / valid_cnt.clamp_min(1.0),
+                            0.5)
+
+    fA, fB, acc_c, loss_c = grow_step(
+        st.bits, st.freq, st.allele, st.geno_sel, B, is_oob, g_cand, afreq,
+        a1, a2, n_alleles, rare_prob, total_n, mask_budget, engine,
+        skip=st.done)
+    with trace.span("train.update", dev):
+        return _update(st, geno_T, fA, fB, acc_c, loss_c, cand_idx,
+                       cand_in_pool, cand_ok, key, mtry, prune, freeze,
+                       budget)
+
+
+def _update(st, geno_T, fA, fB, acc_c, loss_c, cand_idx, cand_in_pool,
+            cand_ok, key, mtry, prune, freeze, budget):
+    """The rest of `_step` after the device work: `_decide`, the accepted
+    candidate's doubled list, sort and the pool update."""
     K, Hc, L = st.bits.shape
     P = geno_T.shape[0]
     dev = st.bits.device
     ar = torch.arange(K, device=dev)
     was_done = st.done
-
-    keys = threefry.split(st.key)                       # [K, 2, 2]
-    key, k1 = keys[:, 0], keys[:, 1]
-    cand_idx = threefry.draw_top_k(k1, st.pool, mtry)   # [K, Cm]
-    cand_in_pool = st.pool.gather(1, cand_idx)
-
-    g_cand = geno_T[cand_idx]                           # [K, Cm, N] int8
-    okg = g_cand <= 2
-    allele_cnt = torch.einsum("kcn,kn->kc",
-                              torch.where(okg, g_cand.to(torch.float32), 0.0),
-                              B)
-    valid_cnt = 2.0 * torch.einsum("kcn,kn->kc", okg.to(torch.float32), B)
-    cand_ok = cand_in_pool & (allele_cnt > 0) & (allele_cnt < valid_cnt)
-    afreq = torch.where(cand_ok, allele_cnt / valid_cnt.clamp_min(1.0), 0.5)
-
-    fA, fB, acc_c, loss_c = grow_step(
-        st.bits, st.freq, st.allele, st.geno_sel, B, is_oob, g_cand, afreq,
-        a1, a2, n_alleles, rare_prob, total_n, mask_budget, engine,
-        skip=was_done)
     min_i, max_acc, min_loss, kills = _decide(
         cand_ok, acc_c, loss_c, st.gmax_acc, st.gmin_loss, prune)
 
@@ -283,10 +299,14 @@ def fused_grow_batch(state: GrowState, B, real, geno, a1, a2, rare_prob,
     geno_T = geno.T.contiguous()
     is_oob = (B == 0) & real[None, :]
     seg = seg_steps or max_steps
-    while state.steps < max_steps and not bool(state.done.all()):
-        state = _step(state, B, is_oob, geno_T, a1, a2, rare_prob, total_n,
-                      n_alleles, mtry, prune, freeze, max_steps, mask_budget,
-                      engine)
+    while state.steps < max_steps:
+        trace.count("host_syncs")
+        if bool(state.done.all()):
+            break
+        with trace.span("train.step", state.bits):
+            state = _step(state, B, is_oob, geno_T, a1, a2, rare_prob,
+                          total_n, n_alleles, mtry, prune, freeze, max_steps,
+                          mask_budget, engine)
         if progress is not None and (state.steps % seg == 0
                                      or bool(state.done.all())):
             progress(state.steps, int(state.done.sum()), K)
@@ -347,8 +367,20 @@ def train_fused_batch(ctx, K: int, seed: int, mtry: int, prune: bool = True,
     mask passes that budget. The shards' host loops take turns on the
     interpreter lock (parallel/mesh.py), so a mesh is no faster than one
     device; to train on several cards, run one process per card
-    (`train_distributed`, `train_dynamic`).
+    (`train_distributed`, `train_dynamic`). Traced as the root span
+    ``train.batch`` (utils/trace.py), a retry's or a shard's batch inside
+    it.
     """
+    with trace.span("train.batch", ctx.device):
+        return _train_fused_batch(ctx, K, seed, mtry, prune, hcap, first_id,
+                                  max_steps, seg_steps, progress,
+                                  on_overflow, _ids, freeze_max_batch,
+                                  engine, mask_budget, mesh)
+
+
+def _train_fused_batch(ctx, K, seed, mtry, prune, hcap, first_id, max_steps,
+                       seg_steps, progress, on_overflow, _ids,
+                       freeze_max_batch, engine, mask_budget, mesh):
     from ..parallel.mesh import as_mesh, run_shards, shard_bounds
     from ..utils.rng import RRng
     from .em import MASK_TOTAL_BUDGET_BYTES
@@ -394,7 +426,11 @@ def train_fused_batch(ctx, K: int, seed: int, mtry: int, prune: bool = True,
     keys = torch.stack([threefry.prng_key(seed * 7919 + i, dev) for i in ids])
     real = torch.arange(ctx.n_samp_pad, device=dev) < N
     real_snp = torch.arange(ctx.n_snp_pad, device=dev) < P
-    t = lambda x: torch.from_numpy(x).to(dev)
+
+    def t(x):
+        if dev.type != "cpu":
+            trace.count("h2d_bytes", x.nbytes)
+        return torch.from_numpy(x).to(dev)
     B_t = t(Bs)
 
     def mk(k, bits_k, freq_k, allele_k, ns, snp_order_k, acc_k):

@@ -114,17 +114,21 @@ def load() -> ctypes.CDLL:
 def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(build())
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.hibag_ens_acc.argtypes = [p] * 10 + [i] * 5 + [p]
+    # each launcher ends with its stream and two launch marks
+    # (csrc/launch_marks.cuh)
+    lib.hibag_ens_acc.argtypes = [p] * 10 + [i] * 5 + [p] * 3
     lib.hibag_ens_acc.restype = i
-    lib.hibag_em_estep.argtypes = [p] * 10 + [i] * 5 + [ctypes.c_float, p]
+    lib.hibag_em_estep.argtypes = [p] * 10 + [i] * 5 + [ctypes.c_float,
+                                                        p, p, p]
     lib.hibag_em_estep.restype = i
-    lib.hibag_em_packed.argtypes = [p] * 11 + [i] * 8 + [ctypes.c_float, p]
+    lib.hibag_em_packed.argtypes = [p] * 11 + [i] * 8 + [ctypes.c_float,
+                                                         p, p, p]
     lib.hibag_em_packed.restype = i
     lib.hibag_em_packed_smem.argtypes = [i] * 4
     lib.hibag_em_packed_smem.restype = ctypes.c_longlong
-    lib.hibag_eval_cand.argtypes = [p] * 16 + [i] * 8 + [p]
+    lib.hibag_eval_cand.argtypes = [p] * 16 + [i] * 8 + [p] * 3
     lib.hibag_eval_cand.restype = i
-    lib.hibag_post_scores.argtypes = [p] * 11 + [i] * 5 + [p]
+    lib.hibag_post_scores.argtypes = [p] * 11 + [i] * 5 + [p] * 3
     lib.hibag_post_scores.restype = i
     lib.hibag_post_scores_smem.argtypes = [i] * 3
     lib.hibag_post_scores_smem.restype = ctypes.c_longlong

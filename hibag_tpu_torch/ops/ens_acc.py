@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..constants import MAXNUM_SNP, penalty_table
+from ..utils import trace
 from .scoring import majority_hits, posterior_scores, unordered_from_S
 
 #: most haplotype slots per classifier the kernel takes
@@ -33,6 +34,7 @@ MAX_H = 1024
 MAX_A = 128
 
 #: kernel launches made by `ensemble_accumulate`; never the plain version's
+#: (with tracing on, each launch is also recorded: utils/trace.py::launch)
 LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
 
@@ -201,13 +203,15 @@ def ensemble_accumulate(hap: PackedHaplotypes, g: torch.Tensor,
         return ens, dmin, total
     lib = _build.load()
     tab = _pen_table(dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), trace.launch(
+            "ens_acc", {"C": C, "N": N, "H": hap.n_slots, "A": A},
+            device=dev) as rec:
         err = lib.hibag_ens_acc(
             hap.hb.data_ptr(), hap.freq.data_ptr(), hap.allele.data_ptr(),
             hap.nh.data_ptr(), g.data_ptr(), wgt.data_ptr(), tab.data_ptr(),
             ens.data_ptr(), dmin.data_ptr(), total.data_ptr(),
             C, hap.n_slots, N, A, int(majority),
-            torch.cuda.current_stream(dev).cuda_stream)
+            torch.cuda.current_stream(dev).cuda_stream, *rec.marks)
     if err != 0:
         msg = lib.hibag_cuda_error_string(err).decode()
         raise RuntimeError(f"ensemble kernel launch failed: {msg} ({err})")

@@ -27,6 +27,7 @@ import threading
 import torch
 
 from ..constants import MAXNUM_SNP
+from ..utils import trace
 from .ens_acc import (PackedHaplotypes, check_inputs, pack_haplotypes,
                       unpack_bits)
 from .scoring import posterior_scores
@@ -53,6 +54,7 @@ SMEM_BYTES = 224 * 1024
 RECORD_BYTES = 256 * 1024 ** 2
 
 #: kernel launches made by `ensemble_scores`; never the plain version's
+#: (with tracing on, each launch is also recorded: utils/trace.py::launch)
 LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
 
@@ -135,13 +137,15 @@ def ensemble_scores(hap: PackedHaplotypes, g: torch.Tensor, n_alleles: int,
     records = (None if shared else
                torch.empty(nrec // 4, dtype=torch.int32, device=dev))
     ptr = lambda x: None if x is None else x.data_ptr()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), trace.launch(
+            "post_scores", {"C": C, "N": N, "H": hap.n_slots, "A": A},
+            device=dev) as rec:
         err = lib.hibag_post_scores(
             hap.hb.data_ptr(), hap.freq.data_ptr(), hap.allele.data_ptr(),
             hap.nh.data_ptr(), g.data_ptr(), tab.data_ptr(), S.data_ptr(),
             dmin.data_ptr(), total.data_ptr(), ptr(scratch), ptr(records), C,
             hap.n_slots, N, A, NB,
-            torch.cuda.current_stream(dev).cuda_stream)
+            torch.cuda.current_stream(dev).cuda_stream, *rec.marks)
     if err != 0:
         msg = lib.hibag_cuda_error_string(err).decode()
         raise RuntimeError(f"scoring kernel launch failed: {msg} ({err})")

@@ -23,6 +23,7 @@ import torch
 
 from ..constants import LOG_MIN_RARE_FREQ, MAXNUM_SNP
 from ..models import em
+from ..utils import trace
 
 #: the EM kernels' limits: H a multiple of EM_H_MULTIPLE up to EM_MAX_H
 #: (their pair and row lists hold slot indices in 16 bits), and 1..MAX_C
@@ -60,7 +61,8 @@ EM_PACKED_WARPS = 8
 EM_PAIR_LIST = 64
 EM_SMEM_BYTES = 224 * 1024
 
-#: kernel launches made by each wrapper; never the plain versions'
+#: kernel launches made by each wrapper; never the plain versions' (with
+#: tracing on, each launch is also recorded: utils/trace.py::launch)
 LAUNCHES = {"em_estep": 0, "em_estep_packed": 0,
             "evaluate_candidates_kernel": 0}
 _COUNT_LOCK = threading.Lock()
@@ -135,12 +137,14 @@ def _em_launch(fA, fB, mask, gc, B, total_n):
     part = torch.empty((K, G, 2, C, H), dtype=torch.float32, device=dev)
     dllp = torch.empty((K, G, C), dtype=torch.float32, device=dev)
     lib = _build.load()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), trace.launch(
+            "em_estep", {"K": K, "S": S, "H": H, "C": C, "tier": "int8"},
+            device=dev) as rec:
         err = lib.hibag_em_estep(
             mask.data_ptr(), fA.data_ptr(), fB.data_ptr(), gc.data_ptr(),
             B.data_ptr(), part.data_ptr(), dllp.data_ptr(), dfA.data_ptr(),
             dfB.data_ptr(), dll.data_ptr(), K, S, H, C, G, float(total_n),
-            torch.cuda.current_stream(dev).cuda_stream)
+            torch.cuda.current_stream(dev).cuda_stream, *rec.marks)
     _raise_if_failed(lib, err, "EM")
     return dfA, dfB, dll
 
@@ -182,13 +186,16 @@ def _em_packed_launch(fA, fB, packed, gc, B, total_n, smem_budget,
     part = torch.empty((K, G, 2, C, H), dtype=torch.float32, device=dev)
     dllp = torch.empty((K, G, C), dtype=torch.float32, device=dev)
     tmask = torch.empty((K, G, H // 32), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), trace.launch(
+            "em_estep_packed",
+            {"K": K, "S": S, "H": H, "C": C, "tier": "packed"},
+            device=dev) as rec:
         err = lib.hibag_em_packed(
             packed.data_ptr(), fA.data_ptr(), fB.data_ptr(), gc.data_ptr(),
             B.data_ptr(), part.data_ptr(), dllp.data_ptr(), tmask.data_ptr(),
             dfA.data_ptr(), dfB.data_ptr(), dll.data_ptr(), K, S, H, C, G, R,
             pair_list, int(shared), float(total_n),
-            torch.cuda.current_stream(dev).cuda_stream)
+            torch.cuda.current_stream(dev).cuda_stream, *rec.marks)
     _raise_if_failed(lib, err, "packed EM")
     return dfA, dfB, dll
 
@@ -392,7 +399,10 @@ def evaluate_candidates_kernel(bits, allele, fA, fB, g_cand, geno_sel, a1,
     accp = torch.empty((K, C, N), dtype=torch.int32, device=dev)
     llp = torch.empty((K, C, N), dtype=torch.float32, device=dev)
     tab = pen_table(dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), trace.launch(
+            "evaluate_candidates_kernel",
+            {"K": K, "N": N, "H": H, "C": C, "A": A, "plan": plan},
+            lambda: eval_counts(allele, fA, fB, geno_sel, A), dev) as rec:
         err = lib.hibag_eval_cand(
             hb.data_ptr(), al.data_ptr(), nok.data_ptr(), fq.data_ptr(),
             g_cand.data_ptr(), geno_sel.data_ptr(), a1.data_ptr(),
@@ -400,10 +410,29 @@ def evaluate_candidates_kernel(bits, allele, fA, fB, g_cand, geno_sel, a1,
             accp.data_ptr(), llp.data_ptr(),
             gscratch.data_ptr() if gscratch is not None else None,
             acc.data_ptr(), ll.data_ptr(), K, H, N, C, A, M, S, plan,
-            torch.cuda.current_stream(dev).cuda_stream)
+            torch.cuda.current_stream(dev).cuda_stream, *rec.marks)
     _raise_if_failed(lib, err, "evaluation")
     _count("evaluate_candidates_kernel")
     return acc, ll
+
+
+def eval_counts(allele, fA, fB, geno_sel, n_alleles) -> torch.Tensor:
+    """The evaluation's data-dependent work, per classifier, int64 [3, K]:
+    its ok slots (fA > 0 or fB > 0 for some candidate); the 32-slot words of
+    its selected codes that hold a heterozygous code, summed over the
+    samples; and its row cells, the sum over alleles a of a's ok slots
+    times the alleles b >= a holding ok slots. Reduced on the device for a
+    launch record while tracing is on (utils/trace.py)."""
+    K, N = geno_sel.shape[:2]
+    A = n_alleles
+    ok = ((fA > 0) | (fB > 0)).any(dim=1)
+    het = (geno_sel.reshape(K, N, MAXNUM_SNP // 32, 32) == 1).any(-1)
+    cnt = torch.zeros((K, A + 1), dtype=torch.int64, device=fA.device)
+    cnt.scatter_add_(1, torch.where(ok, allele.long(), A),
+                     torch.ones_like(ok, dtype=torch.int64))
+    cnt = cnt[:, :A]
+    later = (cnt > 0).long().flip(1).cumsum(1).flip(1)
+    return torch.stack([ok.sum(1), het.sum((1, 2)), (cnt * later).sum(1)])
 
 
 def evaluate_candidates_ref(bits, allele, fA, fB, g_cand, geno_sel, a1, a2,

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils import trace
 
 
 @dataclass(frozen=True)
@@ -135,12 +136,19 @@ def replicate(mesh: EnsembleMesh, tree) -> list:
 
 def run_shards(devices, fns) -> list:
     """[fn() for fn in fns], shard i's on devices[i]: concurrently, one
-    thread each, on cards; in turn in this thread on the CPU. A shard's
-    exception propagates once every shard has ended."""
+    thread each (`run_threads`), on cards; in turn in this thread on the
+    CPU."""
     if len(fns) < 2 or torch.device(devices[0]).type != "cuda":
         return [fn() for fn in fns]
+    return run_threads(fns)
+
+
+def run_threads(fns) -> list:
+    """[fn() for fn in fns], concurrently, one thread each, each under the
+    caller's open span (utils/trace.py::carry). A thread's exception
+    propagates once every thread has ended."""
     with ThreadPoolExecutor(max_workers=len(fns)) as pool:
-        futures = [pool.submit(fn) for fn in fns]
+        futures = [pool.submit(trace.carry(fn)) for fn in fns]
     return [f.result() for f in futures]
 
 

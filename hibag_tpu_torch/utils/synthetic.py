@@ -23,7 +23,7 @@ from ..models.model import AttrBagModel, Classifier
 
 
 #: mosaic switches per megabase of the training cells' panels (chip_smoke.py
-#: phases 5 and 6, utils/profile_train.py): on the 1,000-sample x 266-SNP
+#: phases 5 and 6, portbench's hla_a-train cell): on the 1,000-sample x 266-SNP
 #: cell it gives classifiers of about 230-390 haplotypes, around the cell's
 #: hcap=256 (an H100 run of the port; 0 gives 15-19)
 PANEL_RECOMBINATION = 0.5
