@@ -58,7 +58,10 @@ Phases, one line each (any failure raises and the exit code is non-zero):
                device-memory plan (bitwise equal to the default
                shared-memory plan; both timed). Then each kernel timed
                beside its plain version at the mid-scale cell's step
-               shape.
+               shape. The matching kernel (ops/match.py) at the training
+               cell's shapes, int8 at K=8, S=1,000, H=256 and packed at
+               H=512 (MATCH_SHAPES): masks bitwise equal to the plain
+               version's, timed beside it and its bytes bound.
   5. train   — a seeded synthetic typed panel of 1,000 samples x 266 SNPs and
                14 alleles, its haplotypes mosaics away from the middle SNP
                (synthetic.PANEL_RECOMBINATION switches per Mb, which puts
@@ -855,7 +858,63 @@ def phase_train_kernels(dev):
               f"abs err {e:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})"
               f"{extra}")
+    timing.update(_match_times(rng, dev))
     return timing
+
+
+#: (K, S, H) of the training cell's matching: the int8 mask of every growth
+#: step (H=256) and the packed mask of its freeze resumes (H=512)
+MATCH_SHAPES = {"match_pairs": (8, 1000, 256),
+                "match_pairs_packed": (8, 1000, 512)}
+
+
+def _match_times(rng, dev):
+    """The matching kernel (ops/match.py) at MATCH_SHAPES: its int8 and
+    packed masks bitwise equal to the plain version's (models/em.py::
+    match_pairs, engine="torch", as int8 and through _pack_mask), two runs
+    bitwise equal; the kernel, its entry em.match_pairs(engine="cuda")
+    (with pack_bits) and the plain version timed beside the bytes bound.
+    Returns {name: timing}."""
+    from hibag_tpu_torch.models import em
+    from hibag_tpu_torch.ops import match
+    from hibag_tpu_torch.ops import train_step as ts
+
+    out = {}
+    for name, (K, S, H) in MATCH_SHAPES.items():
+        packed = name.endswith("packed")
+        c = _train_case(rng, K, 1, H, 14, S, dev, n_sel=16, masks=False)
+        args = (c["bits"], c["freq"] > 0, c["allele"], c["geno"], c["a1"],
+                c["a2"])
+        entry = em.match_pairs_packed if packed else em.match_pairs
+        got = entry(*args, engine="cuda")
+        again = entry(*args, engine="cuda")
+        torch.cuda.synchronize()
+        want = entry(*args, engine="torch")
+        if not packed:
+            want = want.to(torch.int8)
+        label = f"K={K} S={S} H={H}"
+        if not (torch.equal(got, want) and torch.equal(got, again)):
+            raise AssertionError(f"{name} {label}: the kernel's mask differs "
+                                 "from the plain version's or run to run")
+        kargs = (ts.pack_bits(c["bits"]), c["freq"] > 0, c["allele"],
+                 c["geno"], c["a1"], c["a2"])
+        ms = _means(lambda: match.match_pairs_kernel(*kargs, packed=packed))
+        entry_ms = _cuda_ms(lambda: entry(*args, engine="cuda"), 10)
+        plain_ms = _cuda_ms(lambda: entry(*args, engine="torch"), 3)
+        bound = _bound(K * S * H * H // (8 if packed else 1) + 16 * K * H
+                       + 128 * K * S)
+        pairs = int((got != 0).sum()) if not packed else None
+        out[name] = {"max_abs_err": 0.0, "ms": min(ms), "plain_ms": plain_ms,
+                     "entry_ms": entry_ms, "shape": label, **bound}
+        print(f"[train-kernel] {name} {label}: bitwise equal to the plain "
+              f"version, two runs bitwise equal"
+              f"{'' if pairs is None else f', {pairs} matched pairs'}; "
+              f"kernel {' / '.join(f'{t:.4f}' for t in ms)} ms (three "
+              f"10-launch means), with pack_bits {entry_ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}), {bound['bound_ms'] / min(ms):.1%} of "
+              "it")
+    return out
 
 
 def _eval_plan(c, budget=None):
@@ -1078,7 +1137,7 @@ def phase_train(card, keep=None):
     its timed run's model in `keep`."""
     from hibag_tpu_torch import predict, train_parallel
     from hibag_tpu_torch.models import train_fused
-    from hibag_tpu_torch.ops import ens_acc
+    from hibag_tpu_torch.ops import ens_acc, match
     from hibag_tpu_torch.ops import train_step as ts
 
     (table, geno), (htable, hgeno) = _mid_panel()
@@ -1100,13 +1159,15 @@ def phase_train(card, keep=None):
     train_fused._freeze_reseat = counted_reseat
     for k in ts.LAUNCHES:
         ts.LAUNCHES[k] = 0
+    for k in match.LAUNCHES:
+        match.LAUNCHES[k] = 0
     t0 = time.perf_counter()
     model = train_parallel(table, geno, **kw)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = dict(ts.LAUNCHES)
+    launches = {**ts.LAUNCHES, **match.LAUNCHES}
     train_fused._step, train_fused._freeze_reseat = step, reseat
-    for name in ("em_estep", "evaluate_candidates_kernel"):
+    for name in ("em_estep", "evaluate_candidates_kernel", "match_pairs"):
         if launches[name] < 1:
             raise AssertionError(f"training did not launch {name}")
     same = _same_classifiers(first, model)
@@ -1136,7 +1197,9 @@ def phase_train(card, keep=None):
           f"{8 / elapsed:.4f} classifiers/s ({elapsed:.3f} s), {steps[0]} "
           f"growth steps, EM kernel launches {launches['em_estep']} "
           f"({launches['em_estep'] / max(steps[0], 1):.2f} per step), eval "
-          f"launches {launches['evaluate_candidates_kernel']}; runs bitwise "
+          f"launches {launches['evaluate_candidates_kernel']}, matching "
+          f"launches {launches['match_pairs']} int8 and "
+          f"{launches['match_pairs_packed']} packed; runs bitwise "
           f"equal 8/8; mean OOB {oob:.4f}; held-out accuracy {acc:.4f} "
           f"(500 samples); SNPs {n_snp}, haplotypes {n_hap}, freeze "
           f"re-seats {reseats[0]}; same SNP "
@@ -2746,6 +2809,13 @@ def main():
         kernels.append({"name": name, "route": "cuda",
                         "source": f"hibag_tpu_torch/csrc/{src}",
                         "replaces": line, "launches": train_launches[name],
+                        **train_timing[name]})
+    # added for the port: hibag_tpu matches pairs in jnp
+    for name in ("match_pairs", "match_pairs_packed"):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "hibag_tpu_torch/csrc/match_pairs.cu",
+                        "replaces": "none (jnp in hibag_tpu/models/em.py:88)",
+                        "launches": train_launches[name],
                         **train_timing[name]})
     # one kernel serves _kernel (one classifier) and _kernel_ens (a chunk)
     kernels.append({"name": "post_scores", "route": "cuda",

@@ -134,6 +134,8 @@ def _load() -> ctypes.CDLL:
     lib.hibag_post_scores_smem.restype = ctypes.c_longlong
     lib.hibag_post_scores_scratch.argtypes = [i]
     lib.hibag_post_scores_scratch.restype = ctypes.c_longlong
+    lib.hibag_match_pairs.argtypes = [p] * 7 + [i] * 6 + [p] * 3
+    lib.hibag_match_pairs.restype = i
     lib.hibag_eval_smem.argtypes = [i] * 4
     lib.hibag_eval_smem.restype = ctypes.c_longlong
     lib.hibag_cuda_error_string.argtypes = [i]

@@ -68,16 +68,33 @@ def _match_args(p, jax_side):
             _t(p["geno_sel"]), _t(p["a1"], False), _t(p["a2"], False))
 
 
-@pytest.mark.parametrize("seed,N", [(0, 24), (1, 300)])
-def test_match_pairs_and_packed_masks_equal(seed, N):
-    # N=300 at H=128 takes two sample chunks on both sides
-    p = _problem(seed, N=N)
+@pytest.mark.parametrize("seed,N,variant", [
+    pytest.param(0, 24, None, id="0-24"),
+    pytest.param(1, 300, None, id="1-300"),
+    pytest.param(2, 64, "typed", id="2-64-typed"),
+    pytest.param(3, 48, "empty block", id="3-48-empty-block"),
+    pytest.param(4, 48, "a1 == a2", id="4-48-same-alleles"),
+    pytest.param(5, 48, "all missing", id="5-48-all-missing")])
+def test_match_pairs_and_packed_masks_equal(seed, N, variant):
+    # N=300 at H=128 takes two sample chunks on both sides; the variants
+    # name engine="torch" (the plain version the matching kernel is held
+    # against) and give samples an allele no slot carries, both alleles
+    # equal, or no called genotype (every block pair ties)
+    p = _problem(seed, N=N, typed=variant is not None)
+    kw = {} if variant is None else {"engine": "torch"}
+    if variant == "empty block":
+        p["a2"][::5] = p["A"] + 1
+    elif variant == "a1 == a2":
+        p["a2"] = p["a1"].copy()
+    elif variant == "all missing":
+        p["geno_sel"][::4] = 3
     mask = np.asarray(ref.match_pairs(*_match_args(p, True)))
     packed = np.asarray(ref.match_pairs_packed(*_match_args(p, True)))
-    np.testing.assert_array_equal(port.match_pairs(*_match_args(p, False))[0]
-                                  .numpy(), mask)
     np.testing.assert_array_equal(
-        port.match_pairs_packed(*_match_args(p, False))[0].numpy(), packed)
+        port.match_pairs(*_match_args(p, False), **kw)[0].numpy(), mask)
+    np.testing.assert_array_equal(
+        port.match_pairs_packed(*_match_args(p, False), **kw)[0].numpy(),
+        packed)
     assert mask.any()
     unpacked = port._unpack_mask(torch.from_numpy(packed.copy()),
                                  torch.float32)
