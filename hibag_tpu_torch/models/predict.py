@@ -74,24 +74,27 @@ def _one_classifier_fn(geno_codes, snp_weight, n_alleles, vote, acc_dt):
     chunk, wadd [n], log_match [cc,n], w [cc,n]) for a chunk of cc
     classifiers with SNP slots sidx [cc, L], where scores(g) gives their
     (S [cc,n,A,A], dmin [cc,n], total [cc,n]) from the gathered codes g int8
-    [cc, n, L]. S is overwritten in place.
+    [cc, n, L]. S is overwritten in place. Traced as ``predict.fold``
+    from the scores' return on.
     """
     A = n_alleles
 
     def one_chunk(scores, sidx):
         g, w = _gather_codes(sidx, snp_weight, geno_codes, acc_dt)
         S, dmin, total = scores(g)
-        Q = unordered_from_S(S, inplace=True)
-        log_match = _log_match(w, total, dmin)
-        if vote == "prob":
-            contrib = Q.mul_((w / total.clamp_min(1e-30))[..., None, None])
-            wadd = w.sum(0)
-        else:
-            cc, n = w.shape
-            contrib = majority_hits(Q.reshape(cc * n, A, A)).reshape(
-                cc, n, A, A) * (w > 0)[..., None, None]
-            wadd = (w > 0).to(acc_dt).sum(0)
-        return contrib.sum(0), wadd, log_match, w
+        with trace.span("predict.fold", geno_codes.device):
+            Q = unordered_from_S(S, inplace=True)
+            log_match = _log_match(w, total, dmin)
+            if vote == "prob":
+                scale = w / total.clamp_min(1e-30)
+                contrib = Q.mul_(scale[..., None, None])
+                wadd = w.sum(0)
+            else:
+                cc, n = w.shape
+                contrib = majority_hits(Q.reshape(cc * n, A, A)).reshape(
+                    cc, n, A, A) * (w > 0)[..., None, None]
+                wadd = (w > 0).to(acc_dt).sum(0)
+            return contrib.sum(0), wadd, log_match, w
 
     return one_chunk
 
@@ -125,7 +128,8 @@ def _scan_raw(hap, snp_index, snp_weight, geno_codes, n_alleles,
     snp_index [C,L]; snp_weight [P]; geno_codes [n,P] uint8. The last chunk
     may hold fewer classifiers. Returns ens [n,A,A] (the weighted sum over
     the classifiers, symmetric unordered convention), wsum [n], log_match
-    [C,n], w [C,n].
+    [C,n], w [C,n]. Traced as a ``predict.scan`` span and a
+    ``predict.scan_chunks`` count per chunk.
     """
     n, A = geno_codes.shape[0], n_alleles
     C = snp_index.shape[0]
@@ -136,10 +140,12 @@ def _scan_raw(hap, snp_index, snp_weight, geno_codes, n_alleles,
     log_match, ws = [], []
     for c0 in range(0, C, cchunk):
         c1 = min(c0 + cchunk, C)
-        contrib, wadd, lm, w = one_chunk(
-            _chunk_scores(hap, c0, c1, A, f64), snp_index[c0:c1])
-        ens += contrib
-        wsum += wadd
+        with trace.span("predict.scan", geno_codes.device):
+            trace.count("predict.scan_chunks")
+            contrib, wadd, lm, w = one_chunk(
+                _chunk_scores(hap, c0, c1, A, f64), snp_index[c0:c1])
+            ens += contrib
+            wsum += wadd
         log_match.append(lm)
         ws.append(w)
     return ens, wsum, torch.cat(log_match), torch.cat(ws)
@@ -378,7 +384,9 @@ def predict(model: AttrBagModel, data, vote: str = "prob",
     (ValueError).
     Traced (utils/trace.py) as the root span ``predict.call`` holding
     ``predict.align``, ``predict.prepare``, a ``predict.block`` per block
-    and shard, a ``predict.fetch`` per block and ``predict.finalize``.
+    and shard (the scan engine's chunks in it: ``predict.scan`` spans
+    holding ``predict.fold``), a ``predict.fetch`` per block and
+    ``predict.finalize``.
     """
     if type is not None:
         if type not in ("response+dosage", "response", "prob",
