@@ -52,11 +52,11 @@ Phases, one line each (any failure raises and the exit code is non-zero):
                evaluation kernel also on samples with heterozygous codes in
                0..4 of the four 32-SNP words, at C=64 with identical
                candidates across float4 boundaries (EVAL_TWINS,
-               bitwise equal) at H=256 and H=4,096 (its device-memory plan,
+               bitwise equal) at H=256 and H=4,096 (its tiled path,
                timed) and the headline step (C=32); there and at the
-               mid-scale step shape also under the budget that forces the
-               device-memory plan (bitwise equal to the default
-               shared-memory plan; both timed). Then each kernel timed
+               mid-scale step shape also launched on the tiled path
+               (bitwise equal to the default phase path in shared memory;
+               both timed). Then each kernel timed
                beside its plain version at the mid-scale cell's step
                shape. The matching kernel (ops/match.py) at the training
                cell's shapes, int8 at K=8, S=1,000, H=256 and packed at
@@ -145,8 +145,9 @@ Phases, one line each (any failure raises and the exit code is non-zero):
                evaluation at A=160); scoring at H 4,160 and
                10,016 and A 14 and 160. Counts and dmin exact, other values
                at rtol 1e-4 (scoring: 2e-4), two runs bitwise equal, every
-               other plan or route that fits (device-memory plans, slot
-               records in device memory, one scoring block a classifier)
+               other plan or route that fits (device-memory plans, the
+               evaluation's tiled path with its slot records in shared or
+               device memory, one scoring block a classifier)
                bitwise equal to the default; each timed beside its bound and
                plain version. Then the wide panel (WIDE_PANEL: 1,000 x 266
                SNPs, 160 alleles, an HLA-B-like locus) trained by
@@ -827,6 +828,8 @@ def phase_train_kernels(dev):
           f"them max abs err {e:.3e}")
     _check_em_tiers(dev)
     _check_eval_cases(rng, dev)
+    err["evaluate_candidates_kernel"] = max(err["evaluate_candidates_kernel"],
+                                            _check_eval_wide(rng, dev))
 
     err["em_estep_packed"] = max(err["em_estep_packed"],
                                  _check_packed_cases(rng, dev))
@@ -930,32 +933,28 @@ def _eval_plan(c, budget=None):
 
 
 def _check_eval_plans(c, label):
-    """The evaluation kernel on c, whose default plan keeps everything in
-    shared memory, under the budget that forces its device-memory plan: it
+    """The evaluation kernel on c, whose default plan is the phase path in
+    shared memory, launched on its tiled path too (ops/train_step.py's
+    _eval_launch at the default's M and S: where the tiled path needs no
+    less shared memory than the phase path, no smem_budget selects it): it
     must give bitwise the default's counts and -2logLik. Returns [(plan, ms
-    of one launch, a mean of 10)] for the default and the forced plan."""
-    from hibag_tpu_torch.ops import _build
+    of one launch, a mean of 10)] for the phase and the tiled path."""
     from hibag_tpu_torch.ops import train_step as ts
 
     kern, _, args = _eval_call(c)
     want = kern(*args)
-    M, shared, _ = _eval_plan(c)
-    if not shared:
+    M, plan, S = _eval_plan(c)
+    if plan != ts.EVAL_PLAN_SHARED:
         raise AssertionError(f"{label}: the default plan is not shared")
     seen = []
-    for budget in (ts.EVAL_SMEM_BYTES,
-                   int(_build.load().hibag_eval_smem(
-                       M, c["A"], c["fAe"].shape[1], 0))):
-        plan = _eval_plan(c, budget)
-        run = lambda: kern(*args, smem_budget=budget)
+    for p in (ts.EVAL_PLAN_SHARED, ts.EVAL_PLAN_TILED):
+        run = lambda: ts._eval_launch(*args, M, p, S)
         got = run()
         torch.cuda.synchronize()
         if not all(torch.equal(x, y) for x, y in zip(got, want)):
-            raise AssertionError(f"{label}: plan {plan} differs from the "
+            raise AssertionError(f"{label}: plan {p} differs from the "
                                  "default plan")
-        seen.append((plan, _cuda_ms(run, 10)))
-    if seen[1][0][1]:
-        raise AssertionError(f"{label}: no device-memory plan was forced")
+        seen.append((p, _cuda_ms(run, 10)))
     return seen
 
 
@@ -967,12 +966,10 @@ EVAL_TWINS = ((0, 1), (3, 4), (7, 8), (62, 63))
 def _check_eval_cases(rng, dev):
     """Phase 3b's evaluation-only cases: samples with heterozygous codes in
     0..4 of the four 32-SNP words (the kernel's distance is compiled per
-    count); EVAL_TWINS at C=64 with H=256 and H=4,096 (the device-memory
-    plan) and at the headline step (K=25, C=32, H=128, S=64), where the
-    device-memory plan is also forced and timed. Counts exact, -2logLik at
+    count); EVAL_TWINS at C=64 with H=256 and H=4,096 (the tiled path)
+    and at the headline step (K=25, C=32, H=128, S=64), where the tiled
+    path is also launched and timed. Counts exact, -2logLik at
     rtol 1e-4, two runs and the twins bitwise equal."""
-    from hibag_tpu_torch.ops import train_step as ts
-
     name = "evaluate_candidates_kernel"
     for nw in range(5):
         c = _train_case(rng, 2, 17, 256, 14, 64, dev, n_sel=128,
@@ -990,10 +987,8 @@ def _check_eval_cases(rng, dev):
         M, shared, per = _eval_plan(c)
         extra = ""
         if not shared:
-            mib = K * -(-S // per) * ts.eval_scratch_bytes(M, 14, C) / 2 ** 20
             ms = _cuda_ms(lambda: kern(*args), 5)
-            extra = (f"; device-memory plan {ms:.4f} ms, scratch "
-                     f"{mib:.1f} MiB")
+            extra = f"; tiled path {ms:.4f} ms"
         print(f"[train-kernel] {name} {label}: plan (M, shared, S) "
               f"{(M, shared, per)}; twins bitwise equal, bitwise "
               f"deterministic, max abs err {e:.3e}{extra}")
@@ -1002,13 +997,108 @@ def _check_eval_cases(rng, dev):
 
 def _plans_line(c, label):
     """_check_eval_plans(c, label) as a line of text."""
-    return "plans (M, shared, S) and ms " + ", ".join(
+    return "plans and ms " + ", ".join(
         f"{p} {ms:.4f}" for p, ms in _check_eval_plans(c, label)) \
         + "; bitwise equal"
 
 
+#: the candidate whose frequencies _eval_edge_case scales below FLT_MIN
+EVAL_TINY = 2
+
+
+def _eval_edge_case(rng, K, C, H, A, S, dev, **kw):
+    """_train_case's inputs (no EM masks; `kw` passed on) with an exact tie
+    between cells of different tiles and warp lanes: in every classifier,
+    haplotypes 16, 17 and 18 (which no sample carries) alone in alleles
+    t0 < t1 < t2 that no carried haplotype has (t1 >= t0 + 3), 16 and 17
+    identical in bits and frequencies, the three frequencies powers of two
+    in every candidate; sample 3 out of bag, carrying haplotypes 16 and 18
+    at its typed SNPs. Its best cells, (t0, t2) and (t1, t2), then tie
+    exactly, in the plain version's full grid too (every product in them
+    exact), and the first counts. Candidate EVAL_TINY's frequencies are
+    scaled by 2^-73, so that every term of its sums falls below FLT_MIN
+    (its totals 0). Returns the inputs and (t0, t1, t2)."""
+    c = _train_case(rng, K, C, H, A, S, dev, masks=False, **kw)
+    al = c["allele"]
+    free = sorted(set(range(A)) - set(al[0, :16].tolist()))
+    t0 = free[0]
+    t1 = next(a for a in free if a >= t0 + 3)
+    t2 = next(a for a in free if a > t1)
+    rest = al[:, 19:]
+    rest[(rest == t0) | (rest == t1) | (rest == t2)] = free[-1]
+    al[:, 16], al[:, 17], al[:, 18] = t0, t1, t2
+    c["bits"][:, 17] = c["bits"][:, 16]
+    c["freq"][:, 17] = c["freq"][:, 16]
+    for name, f in (("fA", (2.0 ** -3, 2.0 ** -4)),
+                    ("fB", (2.0 ** -2, 2.0 ** -5))):
+        for x in (c[name], c[name + "e"]):
+            x[:, :, 16:18] = f[0]
+            x[:, :, 18] = f[1]
+            x[:, EVAL_TINY] *= 2.0 ** -73
+    g = c["geno"][:, 3]
+    pair = (c["bits"][:, 16] + c["bits"][:, 18]).to(g.dtype)
+    c["geno"][:, 3] = torch.where(g < 3, pair, g)
+    c["a1"][3], c["a2"][3] = t0, t2
+    c["B"][:, 3] = 0.0
+    c["oob"] = c["B"] == 0
+    return c, (t0, t1, t2)
+
+
+#: (K, C, H, A, S) of the tiled path's cases: 153 and 160 alleles (cells
+#: over many tiles), 17 and 64 candidates
+EVAL_WIDE_CASES = tuple((2, C, 320, A, 48) for A in (153, 160)
+                        for C in (17, 64))
+
+
+def _check_eval_wide(rng, dev):
+    """The tiled path at EVAL_WIDE_CASES on _eval_edge_case's inputs, then
+    at A=160, C=17 with untyped samples (_train_case's) and on
+    _eval_edge_case's with heterozygous codes in 0..4 of the four 32-SNP
+    words: counts exact (the tie's first maximum, the
+    tiny candidate's zero totals), -2logLik at rtol 1e-4 (untyped: over the
+    resolved samples), two runs and EVAL_TWINS bitwise equal. Then a shape
+    of 1,830 cells (A=60, H=64) whose default is the phase path, launched
+    on the tiled path too: bitwise equal. Returns the max abs
+    error of -2logLik."""
+    from hibag_tpu_torch.ops import train_step as ts
+
+    name = "evaluate_candidates_kernel"
+    worst = 0.0
+    cases = [(sh, {}) for sh in EVAL_WIDE_CASES]
+    cases += [((2, 17, 320, 160, 48), {"typed": False})]
+    cases += [((2, 17, 320, 160, 48), {"n_sel": 128, "het_words": nw})
+              for nw in range(5)]
+    for shape, kw in cases:
+        if kw.get("typed", True):
+            c, _ = _eval_edge_case(rng, *shape, dev, twins=EVAL_TWINS, **kw)
+        else:  # no tiny candidate, whose samples all score below 2^-100
+            c = _train_case(rng, *shape, dev, twins=EVAL_TWINS, masks=False,
+                            **kw)
+        label = "K={} C={} H={} A={} S={}".format(*shape) + (
+            f" {kw}" if kw else "")
+        if _eval_plan(c)[1] != ts.EVAL_PLAN_TILED:
+            raise AssertionError(f"{name} {label}: not the tiled path")
+        kern, ref, args = _eval_call(c)
+        if kw.get("typed", True):
+            e = _check_train_kernel(name, kern, ref, args, label,
+                                    twins=EVAL_TWINS)
+        else:
+            _check_train_kernel(name, kern, ref, args, label,
+                                check_ll=False, twins=EVAL_TWINS)
+            e = _check_train_kernel(name, kern, ref, _resolved(args)[0],
+                                    label + " resolved", twins=EVAL_TWINS)
+        worst = max(worst, e)
+        print(f"[train-kernel] {name} {label}: tiled path; counts exact "
+              f"(ties, totals below FLT_MIN), bitwise deterministic, max abs "
+              f"err {e:.3e}")
+    c, _ = _eval_edge_case(rng, 2, 17, 64, 60, 40, dev, twins=EVAL_TWINS)
+    print(f"[train-kernel] {name} K=2 C=17 H=64 A=60 S=40: "
+          f"{_plans_line(c, 'A=60')}")
+    return worst
+
+
 #: (K, C, H, S) of the twin cases: C=64 at H=256 and at H=4,096 (the
-#: device-memory plan), and the headline step
+#: tiled path), and the headline step
 EVAL_TWIN_CASES = ((2, 64, 256, 64), (1, 64, 4096, 16), (25, 32, 128, 64))
 
 
@@ -1914,7 +2004,7 @@ LIMIT_EM = tuple((1, C, H, 14, 8) for H in (4160, 10016)
                  for C in (1, 17, 64)) + ((2, 17, 832, 14, 1000),)
 LIMIT_EVAL = tuple((2, 17, H, A, S) for A in (130, 320)
                    for H, S in ((64, 64), (512, 32), (4160, 16), (10016, 8))
-                   ) + ((2, 17, 832, 160, 1000),)
+                   ) + ((2, 17, 832, 160, 1000), (2, 17, 2048, 153, 1000))
 LIMIT_SCORES = tuple((2, H, A, N) for H, N in ((4160, 8), (10016, 4))
                      for A in (14, 160))
 #: the wide panel: an HLA-B-like locus, 1,000 typed samples x 266 SNPs and
@@ -2000,7 +2090,7 @@ def _limit_eval(rng, dev):
         M, plan, per = _eval_plan(c)
         want = kern(*args)
         forced = []
-        for p in (ts.EVAL_PLAN_DEVICE, ts.EVAL_PLAN_RECORDS):
+        for p in (ts.EVAL_PLAN_TILED, ts.EVAL_PLAN_RECORDS):
             if p >= plan:
                 continue
             budget = int(smem(M, A, C, p))

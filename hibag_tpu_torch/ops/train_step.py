@@ -33,8 +33,7 @@ EM_H_MULTIPLE = 32
 #: the evaluation kernel's limits: haplotype slots (the triangle of slot
 #: pairs is indexed in int32, from products H (H + 1) < 2^31) and alleles
 #: (the scoring kernel's post_scores.MAX_A, so the scan engine scores every
-#: model the trainer makes); past that, the device scratch
-#: (EVAL_SCRATCH_BYTES)
+#: model the trainer makes)
 EVAL_MAX_H = 46340
 EVAL_MAX_A = 1024
 #: most candidates either kernel takes
@@ -42,13 +41,14 @@ MAX_C = 64
 #: shared memory the evaluation kernel may ask for (of the 227 KB a block
 #: can have on the H100, less its static scratch)
 EVAL_SMEM_BYTES = 224 * 1024
-#: most device scratch the evaluation kernel's device-memory plans take
-#: (they hold one classifier's run at least; one block's scratch must fit)
+#: most device scratch the evaluation kernel's records-in-device-memory
+#: plan takes (it holds one classifier's run at least)
 EVAL_SCRATCH_BYTES = 1024 ** 3
-#: the evaluation kernel's plans (csrc/eval_cand.cu kPlan*): everything in
-#: shared memory; frequencies, row scratch and cell grids in device memory;
-#: the slot records there too
-EVAL_PLAN_SHARED, EVAL_PLAN_DEVICE, EVAL_PLAN_RECORDS = 1, 0, -1
+#: the evaluation kernel's plans (csrc/eval_cand.cu kPlan*): phases, with
+#: the frequencies, row scratch, cell grids and slot records in shared
+#: memory; tiles, with the slot records in shared memory and nothing in
+#: device memory; tiles, with the slot records in device memory
+EVAL_PLAN_SHARED, EVAL_PLAN_TILED, EVAL_PLAN_RECORDS = 1, 0, -1
 #: sample groups of the EM kernels: a block owns a run of samples, the
 #: number of runs depends on S only
 EM_MAX_GROUPS = 64
@@ -327,38 +327,37 @@ def eval_layout(bits, allele, fA, fB, n_alleles):
 def eval_plan(H, n_alleles, C, K, N, smem_bytes, budget=EVAL_SMEM_BYTES):
     """How the evaluation kernel runs a batch of K classifiers of H slots
     over N samples: (M, plan, S) with M = H rounded up to 4 (the slots a
-    block makes room for); the plan, the first of EVAL_PLAN_SHARED (the
-    candidates' frequencies, the row scratch, the cell grids and the slot
-    records in shared memory), EVAL_PLAN_DEVICE (the records alone there)
-    and EVAL_PLAN_RECORDS (none of them) whose shared memory
-    `smem_bytes(M, A, C, plan)` fits `budget` bytes; and S the samples a
-    block takes: about 8 blocks for each of the H100's 132 SMs, more
-    samples a block where the device scratch would pass
-    EVAL_SCRATCH_BYTES. All plans give bitwise the same results. Raises
-    when one block's device scratch alone passes EVAL_SCRATCH_BYTES."""
+    block makes room for); the plan, the first whose shared memory
+    `smem_bytes(M, A, C, plan)` fits `budget` bytes of EVAL_PLAN_SHARED
+    (the phase path: one phase per column allele, the candidates'
+    frequencies, the row scratch, the cell grids and the slot records in
+    shared memory), EVAL_PLAN_TILED (the tiled path: the cells made in
+    tiles that the finish reads from shared memory, the slot records
+    there, nothing in device memory) and EVAL_PLAN_RECORDS (the tiled path
+    with the slot records in device memory); and S the samples a block
+    takes: about 8 blocks for each of the H100's 132 SMs, more samples a
+    block where the records' device scratch would pass EVAL_SCRATCH_BYTES.
+    The choice reads M, A and C alone, and all plans give bitwise the same
+    results. Raises when not even EVAL_PLAN_RECORDS fits `budget`."""
     M = max(4, -(-H // 4) * 4)
     A = n_alleles
     S = max(1, -(-K * N // (8 * 132)))
-    if smem_bytes(M, A, C, EVAL_PLAN_SHARED) <= budget:
-        return M, EVAL_PLAN_SHARED, S
-    plan = (EVAL_PLAN_DEVICE if smem_bytes(M, A, C, EVAL_PLAN_DEVICE)
-            <= budget else EVAL_PLAN_RECORDS)
-    per = eval_scratch_bytes(M, A, C, plan)
-    if per > EVAL_SCRATCH_BYTES:
+    for plan in (EVAL_PLAN_SHARED, EVAL_PLAN_TILED):
+        if smem_bytes(M, A, C, plan) <= budget:
+            return M, plan, S
+    if smem_bytes(M, A, C, EVAL_PLAN_RECORDS) > budget:
         raise ValueError(
-            f"{H} haplotype slots and {A} alleles at {C} candidates need "
-            f"{per} bytes of device scratch a block, more than the "
-            f"evaluation kernel's EVAL_SCRATCH_BYTES={EVAL_SCRATCH_BYTES}")
-    runs = max(1, EVAL_SCRATCH_BYTES // (K * per))
-    return M, plan, max(S, -(-N // runs))
+            f"{A} alleles at {C} candidates do not fit the evaluation "
+            f"kernel's shared memory ({budget} bytes)")
+    runs = max(1, EVAL_SCRATCH_BYTES
+               // (K * eval_scratch_bytes(M, EVAL_PLAN_RECORDS)))
+    return M, EVAL_PLAN_RECORDS, max(S, -(-N // runs))
 
 
-def eval_scratch_bytes(M, n_alleles, C, plan=EVAL_PLAN_DEVICE):
-    """Device scratch of one block of the evaluation kernel's device-memory
-    plans: the [slot][candidate] row sums and the cell grids, C padded to
-    4, and under EVAL_PLAN_RECORDS the slot records (24 bytes a slot)."""
-    return (4 * (-(-C // 4) * 4) * (M + n_alleles * (n_alleles + 1) // 2)
-            + (24 * M if plan == EVAL_PLAN_RECORDS else 0))
+def eval_scratch_bytes(M, plan):
+    """Device scratch of one block of the evaluation kernel: under
+    EVAL_PLAN_RECORDS the slot records (24 bytes a slot), else none."""
+    return 24 * M if plan == EVAL_PLAN_RECORDS else 0
 
 
 def evaluate_candidates_kernel(bits, allele, fA, fB, g_cand, geno_sel, a1,
@@ -379,22 +378,34 @@ def evaluate_candidates_kernel(bits, allele, fA, fB, g_cand, geno_sel, a1,
                                        n_alleles)
     from . import _build
 
+    N = geno_sel.shape[1]
+    if N == 0:
+        z = torch.zeros(fA.shape[:2], dtype=torch.int32, device=fA.device)
+        return z, z.float()
+    M, plan, S = eval_plan(fA.shape[2], n_alleles, fA.shape[1], fA.shape[0],
+                           N, _build.load().hibag_eval_smem, smem_budget)
+    return _eval_launch(bits, allele, fA, fB, g_cand, geno_sel, a1, a2,
+                        is_oob, B, n_alleles, M, plan, S)
+
+
+def _eval_launch(bits, allele, fA, fB, g_cand, geno_sel, a1, a2, is_oob, B,
+                 n_alleles, M, plan, S):
+    """One launch of the evaluation kernel on checked CUDA inputs under the
+    given plan (`eval_plan`'s (M, plan, S))."""
+    from . import _build
+
     K, C, H = fA.shape
     N = geno_sel.shape[1]
     A = n_alleles
     dev = fA.device
     acc = torch.empty((K, C), dtype=torch.int32, device=dev)
     ll = torch.empty((K, C), dtype=torch.float32, device=dev)
-    if N == 0:
-        return acc.zero_(), ll.zero_()
     lib = _build.load()
-    M, plan, S = eval_plan(H, A, C, K, N, lib.hibag_eval_smem, smem_budget)
     hb, al, fq, nok = eval_layout(bits, allele, fA, fB, A)
     gscratch = None
-    if plan != EVAL_PLAN_SHARED:
-        gscratch = torch.empty(
-            K * -(-N // S) * eval_scratch_bytes(M, A, C, plan) // 4,
-            dtype=torch.float32, device=dev)
+    if plan == EVAL_PLAN_RECORDS:
+        gscratch = torch.empty(K * -(-N // S) * eval_scratch_bytes(M, plan)
+                               // 4, dtype=torch.float32, device=dev)
     oob = is_oob.to(torch.uint8)
     accp = torch.empty((K, C, N), dtype=torch.int32, device=dev)
     llp = torch.empty((K, C, N), dtype=torch.float32, device=dev)
@@ -413,6 +424,8 @@ def evaluate_candidates_kernel(bits, allele, fA, fB, g_cand, geno_sel, a1,
             torch.cuda.current_stream(dev).cuda_stream, *rec.marks)
     _raise_if_failed(lib, err, "evaluation")
     _count("evaluate_candidates_kernel")
+    if plan != EVAL_PLAN_SHARED:
+        trace.count("evaluate_candidates_tiled")
     return acc, ll
 
 

@@ -366,11 +366,96 @@ def test_eval_kernel_identical_candidates(cuda, K, C, H, S):
 
 @pytest.mark.gpu
 def test_eval_kernel_plans_agree(cuda):
-    """The device-memory plan gives bitwise the default (shared-memory)
-    plan's results (chip_smoke._check_eval_plans)."""
+    """The tiled path gives bitwise the default plan's (the phase path in
+    shared memory) results (chip_smoke._check_eval_plans)."""
     c = chip_smoke._train_case(np.random.default_rng(50), 2, 17, 256, 14, 40,
                                cuda, twins=chip_smoke.EVAL_TWINS)
     assert len(chip_smoke._check_eval_plans(c, "plans")) == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,C,H,A,S", chip_smoke.EVAL_WIDE_CASES)
+def test_eval_tiled_path_at_wide_loci(cuda, K, C, H, A, S):
+    """The evaluation's tiled path at 153 and 160 alleles (cells over many
+    tiles) and 17 and 64 candidates, on chip_smoke._eval_edge_case's
+    inputs: an exact tie between cells of different tiles and warp lanes
+    (the first maximum counts), a candidate whose totals fall below
+    FLT_MIN, all-missing samples, identical candidates. Counts exact,
+    -2logLik at rtol 1e-4, two runs and the twins bitwise equal."""
+    c, _ = chip_smoke._eval_edge_case(np.random.default_rng(A + C), K, C,
+                                      H, A, S, cuda,
+                                      twins=chip_smoke.EVAL_TWINS)
+    assert chip_smoke._eval_plan(c)[1] == ts.EVAL_PLAN_TILED
+    chip_smoke._check_train_kernel("evaluate_candidates_kernel",
+                                   *chip_smoke._eval_call(c), "wide",
+                                   twins=chip_smoke.EVAL_TWINS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("het_words", [0, 1, 2, 3, 4])
+def test_eval_tiled_path_heterozygous_words(cuda, het_words):
+    """The tiled path at A=160 on samples with heterozygous codes in exactly
+    `het_words` of the four 32-SNP words (its distance is compiled per
+    count): counts exact, -2logLik at rtol 1e-4, two runs bitwise equal."""
+    c, _ = chip_smoke._eval_edge_case(np.random.default_rng(80 + het_words),
+                                      2, 17, 320, 160, 48, cuda, n_sel=128,
+                                      het_words=het_words)
+    assert chip_smoke._eval_plan(c)[1] == ts.EVAL_PLAN_TILED
+    chip_smoke._check_train_kernel("evaluate_candidates_kernel",
+                                   *chip_smoke._eval_call(c), "het words")
+
+
+@pytest.mark.gpu
+def test_eval_tiled_path_on_untyped_samples(cuda):
+    """The tiled path at A=160 on untyped samples: counts exact; -2logLik
+    at rtol 1e-4 over the samples whose true pair scores at least 2^-100
+    (chip_smoke.py's rule)."""
+    c = chip_smoke._train_case(np.random.default_rng(90), 2, 17, 320, 160,
+                               64, cuda, typed=False, masks=False)
+    assert chip_smoke._eval_plan(c)[1] == ts.EVAL_PLAN_TILED
+    kern, ref, args = chip_smoke._eval_call(c)
+    chip_smoke._check_train_kernel("evaluate_candidates_kernel", kern, ref,
+                                   args, "untyped", check_ll=False)
+    chip_smoke._check_train_kernel("evaluate_candidates_kernel", kern, ref,
+                                   chip_smoke._resolved(args)[0],
+                                   "untyped, resolved")
+
+
+@pytest.mark.gpu
+def test_eval_tiled_path_equals_phase_path(cuda):
+    """At 60 alleles and 64 slots (1,830 cells, four tiles) the default is
+    the phase path in shared memory; the tiled path on the same inputs
+    gives bitwise its counts and -2logLik, the tie and the tiny candidate
+    included (chip_smoke._check_eval_plans)."""
+    c, _ = chip_smoke._eval_edge_case(np.random.default_rng(52), 2, 17, 64,
+                                      60, 40, cuda,
+                                      twins=chip_smoke.EVAL_TWINS)
+    assert len(chip_smoke._check_eval_plans(c, "A=60")) == 2
+
+
+@pytest.mark.gpu
+def test_eval_tiled_launches_are_counted(cuda):
+    """While tracing is on, each launch on the tiled path adds one to the
+    counter evaluate_candidates_tiled, and a launch on the phase path
+    none."""
+    from hibag_tpu_torch.utils import trace
+
+    rng = np.random.default_rng(53)
+    phase = chip_smoke._eval_call(chip_smoke._train_case(
+        rng, 2, 17, 256, 14, 16, cuda, masks=False))
+    tiled = chip_smoke._eval_call(chip_smoke._train_case(
+        rng, 2, 17, 256, 153, 16, cuda, masks=False))
+    trace.reset()
+    trace.enable()
+    try:
+        phase[0](*phase[2])
+        tiled[0](*tiled[2])
+        tiled[0](*tiled[2])
+        got = trace.summary()["counters"].get("evaluate_candidates_tiled")
+    finally:
+        trace.disable()
+        trace.reset()
+    assert got == 2
 
 
 @pytest.mark.gpu

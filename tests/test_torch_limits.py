@@ -178,17 +178,17 @@ def test_wide_steps_per_sample_counts():
 def test_eval_and_em_plans_at_wide_shapes(H, A):
     """The evaluation kernel's plan and scratch and the packed EM kernel's
     plan at 4,160 and 10,016 slots and 130 and 320 alleles, from the
-    kernels' layouts by their terms: the grids in device memory always
-    (plan 0), the slot records too past about 9,000 slots (plan -1); the
-    packed EM's frequencies and accumulator in device memory at C=17."""
+    kernels' layouts by their terms: the tiled path always, with no device
+    scratch (plan 0), the slot records in device memory past about 9,000
+    slots (plan -1, 24 bytes a slot); the packed EM's frequencies and
+    accumulator in device memory at C=17."""
     from test_torch_train_step import _eval_smem
 
     M, plan, _ = ts.eval_plan(H, A, 17, 2, 64, _eval_smem)
-    want = ts.EVAL_PLAN_DEVICE if H == 4160 else ts.EVAL_PLAN_RECORDS
+    want = ts.EVAL_PLAN_TILED if H == 4160 else ts.EVAL_PLAN_RECORDS
     assert (M, plan) == (H, want)
-    ncell = A * (A + 1) // 2
-    assert ts.eval_scratch_bytes(M, A, 17, plan) == (
-        80 * (H + ncell) + (24 * H if plan == ts.EVAL_PLAN_RECORDS else 0))
+    assert ts.eval_scratch_bytes(M, plan) == (
+        24 * H if plan == ts.EVAL_PLAN_RECORDS else 0)
 
     def em_smem(H, C, lcap, shared):  # csrc/em_estep.cu PkLayout's terms
         return (shared * 16 * C * H + 388 * C + 2 * H + 36 * (H // 32)

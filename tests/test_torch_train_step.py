@@ -174,55 +174,74 @@ def test_eval_layout_keeps_each_alleles_slots():
 def _eval_smem(M, A, C, plan):
     """The evaluation kernel's shared memory (csrc/eval_cand.cu Layout), by
     its terms: table and penalties, allele offsets, the slot records (plans
-    1 and 0), the frequencies, row scratch and cell grids (plan 1)."""
+    1 and 0); the phase path's frequencies, row scratch and cell grids (plan
+    1); the tiled path's (plans 0 and -1) tile of cells (slot ranges,
+    [candidate][cell] values; 24 KB of values, in multiples of 32 cells up
+    to 1,024), the lanes' finish state and each warp's T of 32 rows."""
     Cp = -(-C // 4) * 4
+    T = min(1024, 24576 // (4 * Cp) // 32 * 32)
+    tiled = 16 * T + 4 * Cp * T + 16 * Cp * 32 + 4 * 8 * 32 * Cp
     return (1040 + 12 * Cp + 16 * ((A + 4) // 4) + 24 * M * (plan >= 0)
-            + (plan == 1) * 4 * Cp * (3 * M + A * (A + 1) // 2))
+            + ((plan == 1) * 4 * Cp * (3 * M + A * (A + 1) // 2)
+               or tiled))
 
 
 def test_eval_plan_prefers_shared_memory():
-    """eval_plan keeps the frequencies, scratch and grids in shared memory
-    when they fit the budget, else goes to device memory with its scratch
-    capped, the slot records too where they do not fit, and raises when one
-    block's device scratch would pass EVAL_SCRATCH_BYTES."""
+    """eval_plan takes the phase path in shared memory where its
+    frequencies, scratch and grids fit the budget, else the tiled path with
+    the slot records in shared memory and no device scratch, the records in
+    device memory where they do not fit (their scratch capped), and raises
+    when not even that fits."""
     smem = _eval_smem
     assert ts.eval_plan(256, 14, 17, 8, 1024, smem) == (256, True, 8)
     assert ts.eval_plan(254, 14, 17, 25, 64, smem) == (256, True, 2)
     assert ts.eval_plan(1024, 14, 17, 8, 1024, smem) == (1024, False, 8)
     assert ts.eval_plan(256, 14, 17, 8, 1024, smem,
                         smem(256, 14, 17, 0)) == (256, False, 8)
-    # 8 classifiers of 4,096 slots and 128 alleles: 3.2 MB of scratch a
-    # block, so 42 runs of 25 samples each, not 128 of 8
-    per = ts.eval_scratch_bytes(4096, 128, 61)
-    assert per == 4 * 64 * (4096 + 8256)
-    M, shared, S = ts.eval_plan(4096, 128, 61, 8, 1024, smem)
-    assert (M, shared, S) == (4096, False, 25)
-    assert 8 * -(-1024 // S) * per <= ts.EVAL_SCRATCH_BYTES
-    assert 8 * -(-1024 // (S - 1)) * per > ts.EVAL_SCRATCH_BYTES
+    # 8 classifiers of 4,096 slots and 128 alleles: the tiled path, no
+    # device scratch, so 128 runs of 8 samples
+    assert ts.eval_scratch_bytes(4096, ts.EVAL_PLAN_TILED) == 0
+    M, plan, S = ts.eval_plan(4096, 128, 61, 8, 1024, smem)
+    assert (M, plan, S) == (4096, ts.EVAL_PLAN_TILED, 8)
     assert ts.eval_plan(10000, 14, 17, 1, 1, smem) == (
         10000, ts.EVAL_PLAN_RECORDS, 1)
-    with pytest.raises(ValueError, match="EVAL_SCRATCH_BYTES"):
-        ts.eval_plan(64, 3000, 64, 1, 1, smem)
+    with pytest.raises(ValueError, match="shared memory"):
+        ts.eval_plan(64, 60000, 64, 1, 1, smem)
 
 
 @pytest.mark.parametrize("H,A,plan,per", [
-    (4160, 130, 0, 4 * 20 * (4160 + 8515)),
-    (4160, 320, 0, 4 * 20 * (4160 + 51360)),
-    (10016, 130, -1, 4 * 20 * (10016 + 8515) + 24 * 10016),
-    (10016, 320, -1, 4 * 20 * (10016 + 51360) + 24 * 10016),
-    (64, 130, 0, 4 * 20 * (64 + 8515)),
-    (512, 320, 0, 4 * 20 * (512 + 51360))])
+    (4160, 130, 0, 0),
+    (4160, 320, 0, 0),
+    (10016, 130, -1, 24 * 10016),
+    (10016, 320, -1, 24 * 10016),
+    (64, 130, 0, 0),
+    (512, 320, 0, 0)])
 def test_eval_plan_past_the_old_limits(H, A, plan, per):
     """Past 4,096 slots or 128 alleles the cell grids leave shared memory
-    (plan 0), and past about 9,000 slots the slot records too (plan -1);
-    the scratch of a block is its row sums and grids, with the records
-    under plan -1. K=4, C=17 (padded to 20), N=1,024."""
+    for the tiled path (plan 0), with no device scratch; past about 9,000
+    slots the slot records go to device memory (plan -1), 24 bytes a slot
+    of scratch a block. K=4, C=17 (padded to 20), N=1,024."""
     M, got, S = ts.eval_plan(H, A, 17, 4, 1024, _eval_smem)
     assert (M, got) == (H, plan)
-    assert ts.eval_scratch_bytes(M, A, 17, got) == per
-    runs = max(1, ts.EVAL_SCRATCH_BYTES // (4 * per))
-    assert S == max(-(-4 * 1024 // (8 * 132)), -(-1024 // runs))
-    assert 4 * -(-1024 // S) * per <= max(ts.EVAL_SCRATCH_BYTES, 4 * per)
+    assert ts.eval_scratch_bytes(M, got) == per
+    runs = max(1, ts.EVAL_SCRATCH_BYTES // (4 * per)) if per else 1
+    assert S == max(-(-4 * 1024 // (8 * 132)), -(-1024 // runs) if per else 1)
+    assert 4 * -(-1024 // S) * per <= ts.EVAL_SCRATCH_BYTES
+
+
+@pytest.mark.parametrize("H", [1024, 2048])
+@pytest.mark.parametrize("A", [153, 160])
+def test_eval_plan_at_the_wide_training_cell(H, A):
+    """hla_b-train's steps (K=2, C=17, N=1,000, 153 or 160 alleles, 1,024
+    or 2,048 slots) take the tiled path with no device scratch, two blocks
+    of it to an SM; hla_a's (A=14, H=256, C=17, K=8) the phase path in
+    shared memory."""
+    M, plan, S = ts.eval_plan(H, A, 17, 2, 1000, _eval_smem)
+    assert (M, plan, S) == (H, ts.EVAL_PLAN_TILED, 2)
+    assert ts.eval_scratch_bytes(M, plan) == 0
+    assert 2 * (_eval_smem(M, A, 17, plan) + 1024) <= 228 * 1024
+    assert ts.eval_plan(256, 14, 17, 8, 1000, _eval_smem)[1] \
+        == ts.EVAL_PLAN_SHARED
 
 
 def test_em_packed_plan_depends_on_samples_only():
