@@ -570,19 +570,20 @@ def _train_case(rng, K, C, H, A, S, dev, n_sel=24, typed=True,
 
 
 def _em_calls(c):
+    from hibag_tpu_torch.models.em import em_estep_packed_ref, em_estep_ref
     from hibag_tpu_torch.ops import train_step as ts
     em = (c["fA"], c["fB"], c["mask"], c["gc"], c["B"], 1000.0)
     pk = (c["fA"], c["fB"], c["packed"], c["gc"], c["B"], 1000.0)
-    return {"em_estep": (ts.em_estep, ts.em_estep_ref, em),
-            "em_estep_packed": (ts.em_estep_packed, ts.em_estep_packed_ref,
-                                pk)}
+    return {"em_estep": (ts.em_estep, em_estep_ref, em),
+            "em_estep_packed": (ts.em_estep_packed, em_estep_packed_ref, pk)}
 
 
 def _eval_call(c):
+    from hibag_tpu_torch.models.em import evaluate_candidates
     from hibag_tpu_torch.ops import train_step as ts
     args = (c["bits"], c["allele"], c["fAe"], c["fBe"], c["gc"], c["geno"],
             c["a1"], c["a2"], c["oob"], c["B"], c["A"])
-    return ts.evaluate_candidates_kernel, ts.evaluate_candidates_ref, args
+    return ts.evaluate_candidates_kernel, evaluate_candidates, args
 
 
 def _check_train_kernel(name, kern, ref, args, label, check_ll=True,
@@ -685,26 +686,30 @@ PACKED_SHAPES = ((25, 32, 128, 14, 64), (1, 17, 512, 14, 1000))
 
 
 def _packed_variants(c, label):
-    """The packed EM kernel on c under the budget that forces its
-    device-memory plan and with a pair list of 0 (every sample taken by
-    the whole block): both must give bitwise the default's outputs.
-    Returns the default plan (G, R, shared)."""
+    """The packed EM kernel on c launched (ops/train_step.py's
+    _em_packed_launch) under the budget that forces its device-memory plan
+    and with a pair list of 0 (every sample taken by the whole block): both
+    must give bitwise the default's outputs. Returns the default plan (G,
+    R, shared)."""
     from hibag_tpu_torch.ops import _build
     from hibag_tpu_torch.ops import train_step as ts
 
     _, _, args = _em_calls(c)["em_estep_packed"]
     want = ts.em_estep_packed(*args)
     K, C, H = c["fA"].shape
+    S = int(c["B"].shape[1])
     smem = _build.load().hibag_em_packed_smem
-    plan = ts.em_packed_plan(H, C, int(c["B"].shape[1]), smem)
+    plan = ts.em_packed_plan(H, C, S, smem)
     device = int(smem(H, C, ts.EM_PAIR_LIST, 0))
-    for kw in ({"smem_budget": device}, {"pair_list": 0},
-               {"smem_budget": device, "pair_list": 0}):
-        got = ts.em_estep_packed(*args, **kw)
+    for budget, pl in ((device, ts.EM_PAIR_LIST), (ts.EM_SMEM_BYTES, 0),
+                       (device, 0)):
+        got = ts._em_packed_launch(
+            *args, *ts.em_packed_plan(H, C, S, smem, budget, pl), pl)
         torch.cuda.synchronize()
         if not all(torch.equal(x, y) for x, y in zip(got, want)):
-            raise AssertionError(f"em_estep_packed {label}: {kw} differs "
-                                 "from the default plan")
+            raise AssertionError(
+                f"em_estep_packed {label}: shared-memory budget {budget} and "
+                f"pair list {pl} differ from the default plan")
     return plan
 
 
@@ -936,7 +941,7 @@ def _check_eval_plans(c, label):
     """The evaluation kernel on c, whose default plan is the phase path in
     shared memory, launched on its tiled path too (ops/train_step.py's
     _eval_launch at the default's M and S: where the tiled path needs no
-    less shared memory than the phase path, no smem_budget selects it): it
+    less shared memory than the phase path, no budget selects it): it
     must give bitwise the default's counts and -2logLik. Returns [(plan, ms
     of one launch, a mean of 10)] for the phase and the tiled path."""
     from hibag_tpu_torch.ops import train_step as ts
@@ -1355,7 +1360,7 @@ def _check_host_step(first, label):
     mask = em.match_pairs(bits, valid, allele, geno_sel, a1, a2).to(
         torch.int8)
     err_em = _check_train_kernel(
-        "em_estep", ts.em_estep, ts.em_estep_ref,
+        "em_estep", ts.em_estep, em.em_estep_ref,
         (fA0.contiguous(), fB0.contiguous(), mask, g_cand, B, total_n), label)
     fA, fB, _, _ = em.em_all_candidates(
         freq, valid, bits, allele, geno_sel, a1, a2, B, g_cand, afreq,
@@ -1363,7 +1368,7 @@ def _check_host_step(first, label):
     fA, fB = em.erase_rare(fA, fB, rare)
     err_ev = _check_train_kernel(
         "evaluate_candidates_kernel", ts.evaluate_candidates_kernel,
-        ts.evaluate_candidates_ref,
+        em.evaluate_candidates,
         (bits, allele, fA, fB, g_cand, geno_sel, a1, a2, is_oob, B, A),
         label, twins=())
     return err_em, err_ev
@@ -2093,10 +2098,10 @@ def _limit_eval(rng, dev):
         for p in (ts.EVAL_PLAN_TILED, ts.EVAL_PLAN_RECORDS):
             if p >= plan:
                 continue
-            budget = int(smem(M, A, C, p))
-            got = kern(*args, smem_budget=budget)
+            fM, fp, fS = _eval_plan(c, int(smem(M, A, C, p)))
+            got = ts._eval_launch(*args, fM, fp, fS)
             torch.cuda.synchronize()
-            if _eval_plan(c, budget)[1] != p or not all(
+            if fp != p or not all(
                     torch.equal(x, y) for x, y in zip(got, want)):
                 raise AssertionError(f"{name} {label}: plan {p} differs from "
                                      f"plan {plan}")
@@ -2135,9 +2140,9 @@ def _limit_scores(rng, dev):
         worst = max(worst, e)
         route = ps.scores_plan(H, A, C, N, lib.hibag_post_scores_smem)
         want = ps.ensemble_scores(hap, g, A)
-        got = ps.ensemble_scores(
-            hap, g, A, smem_budget=int(lib.hibag_post_scores_smem(H, A, 0)),
-            record_budget=C * ps.record_bytes(H))
+        got = ps._scores_launch(hap, g, A, *ps.scores_plan(
+            H, A, C, N, lib.hibag_post_scores_smem,
+            int(lib.hibag_post_scores_smem(H, A, 0)), C * ps.record_bytes(H)))
         torch.cuda.synchronize()
         if not all(torch.equal(x, y) for x, y in zip(got, want)):
             raise AssertionError(f"scores {label}: the one-block device "

@@ -238,6 +238,20 @@ def em_estep_packed(fA, fB, packed, B, m, total_n):
         packed.shape[1], B, m, total_n)
 
 
+def em_estep_ref(fA, fB, mask, g_cand, B, total_n):
+    """Plain version of ops/train_step.py::em_estep, under its signature
+    (g_cand int8 [K, C, S] in place of the selection masks)."""
+    return em_estep_masked(fA, fB, mask, B, _geno_sel_masks(g_cand, fA.dtype),
+                           total_n)
+
+
+def em_estep_packed_ref(fA, fB, packed, g_cand, B, total_n):
+    """Plain version of ops/train_step.py::em_estep_packed, under its
+    signature."""
+    return em_estep_packed(fA, fB, packed, B,
+                           _geno_sel_masks(g_cand, fA.dtype), total_n)
+
+
 def mask_tier(S: int, H: int, mask_budget: int) -> str:
     """The mask tier of `_make_estep` for S samples, H (padded) slots and
     ``mask_budget`` bytes per classifier: "int8", "packed" or "remat"."""

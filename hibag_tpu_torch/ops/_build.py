@@ -12,6 +12,12 @@ loads the library already there. A missing nvcc or a failed build raises.
 (``eval_cand.cu``) compiles with ``-ftz=true``, so its float32 arithmetic
 flushes denormals to zero as XLA's does for hibag_tpu; the other kernels
 keep denormals.
+
+`launch` is the one path from a wrapper in ``ops/`` to a kernel: it enters
+the device, records the launch (utils/trace.py), passes the stream and the
+launch marks, raises on the library's error code and counts the launch.
+`same_device`, `cuda_only` and `pen_table` are the wrappers' shared
+checks and penalty table.
 """
 
 from __future__ import annotations
@@ -24,6 +30,11 @@ import os
 import shutil
 import subprocess
 import threading
+
+import torch
+
+from ..constants import LOG_MIN_RARE_FREQ, MAXNUM_SNP
+from ..utils import trace
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -141,3 +152,66 @@ def _load() -> ctypes.CDLL:
     lib.hibag_cuda_error_string.argtypes = [i]
     lib.hibag_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count(tally) -> None:
+    """One launch more in tally = (dict, key), under the one lock of every
+    kernel's counter: a mesh's shards launch from several threads."""
+    counter, key = tally
+    with _COUNT_LOCK:
+        counter[key] += 1
+
+
+def launch(entry: str, name: str, dims: dict, device, *args, tally,
+           counts=None) -> None:
+    """Launches the library's `entry` on `device`'s current stream with
+    `args` (a tensor as its data pointer, None as a null pointer), the
+    stream and the marks of ``trace.launch(name, dims, counts, device)``.
+    Raises RuntimeError naming `name` when the launcher returns an error
+    code; else `count`s the launch in `tally`. `args` keeps every tensor
+    alive until the kernel is on the stream: one made in the caller's call
+    expression has no other owner, and its memory must not go back to the
+    caching allocator before then."""
+    lib = load()
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device), trace.launch(name, dims, counts,
+                                                 device) as rec:
+        err = getattr(lib, entry)(
+            *ptrs, torch.cuda.current_stream(device).cuda_stream, *rec.marks)
+    if err != 0:
+        msg = lib.hibag_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+    count(tally)
+
+
+def same_device(*xs) -> None:
+    """ValueError unless the tensors xs are contiguous and on one CPU or
+    CUDA device."""
+    dev = xs[0].device
+    if any(x.device != dev for x in xs):
+        raise ValueError("all inputs must be on one device")
+    if not all(x.is_contiguous() for x in xs):
+        raise ValueError("all inputs must be contiguous")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+
+
+def cuda_only(what: str, plain: str, *xs) -> None:
+    """`same_device` for a wrapper that takes CUDA tensors only; on the CPU
+    ValueError naming `what` and its plain version `plain`."""
+    same_device(*xs)
+    if xs[0].device.type != "cuda":
+        raise ValueError(f"{what} takes CUDA tensors only; the plain version "
+                         f"is {plain}")
+
+
+def pen_table(device) -> torch.Tensor:
+    """float32 [257]: exp(log(1e-5) * d), made on `device` by the same
+    float32 exp as the plain versions' penalties (so the evaluation and
+    scoring kernels' penalty for a distance is bitwise the plain
+    versions')."""
+    d = torch.arange(2 * MAXNUM_SNP + 1, dtype=torch.float32, device=device)
+    return torch.exp(LOG_MIN_RARE_FREQ * d)

@@ -18,14 +18,13 @@ CPU tensor it runs `ensemble_accumulate_ref`, the same math in torch.
 
 from __future__ import annotations
 
-import threading
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..constants import MAXNUM_SNP, penalty_table
-from ..utils import trace
+from ._build import launch, same_device
 from .scoring import majority_hits, posterior_scores, unordered_from_S
 
 #: most haplotype slots per classifier the kernel takes
@@ -36,15 +35,6 @@ MAX_A = 128
 #: kernel launches made by `ensemble_accumulate`; never the plain version's
 #: (with tracing on, each launch is also recorded: utils/trace.py::launch)
 LAUNCHES = 0
-_COUNT_LOCK = threading.Lock()
-
-
-def _count():
-    """One launch more, under a lock: a mesh's shards launch from
-    several threads."""
-    global LAUNCHES
-    with _COUNT_LOCK:
-        LAUNCHES += 1
 
 
 @dataclass(frozen=True)
@@ -151,13 +141,7 @@ def check_inputs(hap: PackedHaplotypes, g: torch.Tensor) -> None:
             or g.shape[2] != MAXNUM_SNP:
         raise ValueError(f"g must be int8 [C={C}, N, {MAXNUM_SNP}], got "
                          f"{g.dtype} {tuple(g.shape)}")
-    tensors = (hap.hb, hap.freq, hap.allele, hap.nh, g)
-    if any(x.device != g.device for x in tensors):
-        raise ValueError("all inputs must be on one device")
-    if not all(x.is_contiguous() for x in tensors):
-        raise ValueError("all inputs must be contiguous")
-    if g.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {g.device}")
+    same_device(g, hap.hb, hap.freq, hap.allele, hap.nh)
 
 
 def _check(hap: PackedHaplotypes, g, wgt, n_alleles):
@@ -166,10 +150,7 @@ def _check(hap: PackedHaplotypes, g, wgt, n_alleles):
     C = hap.n_classifiers
     if wgt.dtype != torch.float32 or tuple(wgt.shape) != (C, g.shape[1]):
         raise ValueError(f"wgt must be float32 [{C}, {g.shape[1]}]")
-    if wgt.device != g.device:
-        raise ValueError("all inputs must be on one device")
-    if not wgt.is_contiguous():
-        raise ValueError("all inputs must be contiguous")
+    same_device(g, wgt)
 
 
 _PEN_TABLE: dict = {}
@@ -192,8 +173,6 @@ def ensemble_accumulate(hap: PackedHaplotypes, g: torch.Tensor,
     _check(hap, g, wgt, n_alleles)
     if g.device.type == "cpu":
         return ensemble_accumulate_ref(hap, g, wgt, n_alleles, majority)
-    from . import _build
-
     C, N, A = hap.n_classifiers, int(g.shape[1]), n_alleles
     dev = g.device
     ens = torch.empty((N, A, A), dtype=torch.float32, device=dev)
@@ -201,21 +180,10 @@ def ensemble_accumulate(hap: PackedHaplotypes, g: torch.Tensor,
     total = torch.empty((C, N), dtype=torch.float32, device=dev)
     if N == 0:
         return ens, dmin, total
-    lib = _build.load()
-    tab = _pen_table(dev)
-    with torch.cuda.device(dev), trace.launch(
-            "ens_acc", {"C": C, "N": N, "H": hap.n_slots, "A": A},
-            device=dev) as rec:
-        err = lib.hibag_ens_acc(
-            hap.hb.data_ptr(), hap.freq.data_ptr(), hap.allele.data_ptr(),
-            hap.nh.data_ptr(), g.data_ptr(), wgt.data_ptr(), tab.data_ptr(),
-            ens.data_ptr(), dmin.data_ptr(), total.data_ptr(),
-            C, hap.n_slots, N, A, int(majority),
-            torch.cuda.current_stream(dev).cuda_stream, *rec.marks)
-    if err != 0:
-        msg = lib.hibag_cuda_error_string(err).decode()
-        raise RuntimeError(f"ensemble kernel launch failed: {msg} ({err})")
-    _count()
+    launch("hibag_ens_acc", "ens_acc",
+           {"C": C, "N": N, "H": hap.n_slots, "A": A}, dev, hap.hb, hap.freq,
+           hap.allele, hap.nh, g, wgt, _pen_table(dev), ens, dmin, total, C,
+           hap.n_slots, N, A, int(majority), tally=(globals(), "LAUNCHES"))
     return ens, dmin, total
 
 

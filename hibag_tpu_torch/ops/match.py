@@ -19,8 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..constants import MAXNUM_SNP
-from ..utils import trace
-from .train_step import _COUNT_LOCK, _raise_if_failed, _same_device
+from ._build import cuda_only, launch
 
 #: the kernel's limits: H a multiple of MATCH_H_MULTIPLE up to MATCH_MAX_H
 #: (a sample's two slot bitmaps sit in shared memory), K up to MATCH_MAX_K
@@ -59,12 +58,9 @@ def _check(hb, valid, allele, geno_sel, a1, a2, lo, hi):
         raise ValueError(f"a1 and a2 must be int32 [{S}]")
     if not 0 <= lo <= hi <= S:
         raise ValueError(f"samples {lo}..{hi} outside 0..{S}")
-    if any(x.device.type != "cuda" for x in
-           (hb, valid, allele, geno_sel, a1, a2)):
-        raise ValueError("match_pairs_kernel takes CUDA tensors only; the "
-                         "plain version is models/em.py::match_pairs("
-                         "engine='torch')")
-    _same_device(hb, valid, allele, geno_sel, a1, a2)
+    cuda_only("match_pairs_kernel",
+              "models/em.py::match_pairs(engine='torch')", hb, valid, allele,
+              geno_sel, a1, a2)
     if hb.data_ptr() % 16:
         raise ValueError("hb must be 16-byte aligned")
     return K, S, H
@@ -87,20 +83,9 @@ def match_pairs_kernel(hb, valid, allele, geno_sel, a1, a2, lo=0, hi=None,
                       device=dev)
     if n == 0:
         return out
-    from . import _build
-
     name = "match_pairs_packed" if packed else "match_pairs"
-    lib = _build.load()
-    with torch.cuda.device(dev), trace.launch(
-            name, {"K": K, "n": n, "Hp": H,
-                   "mode": "packed" if packed else "int8"},
-            device=dev) as rec:
-        err = lib.hibag_match_pairs(
-            hb.data_ptr(), valid.data_ptr(), allele.data_ptr(),
-            geno_sel.data_ptr(), a1.data_ptr(), a2.data_ptr(),
-            out.data_ptr(), K, S, H, lo, n, int(packed),
-            torch.cuda.current_stream(dev).cuda_stream, *rec.marks)
-    _raise_if_failed(lib, err, "matching")
-    with _COUNT_LOCK:
-        LAUNCHES[name] += 1
+    launch("hibag_match_pairs", name,
+           {"K": K, "n": n, "Hp": H, "mode": "packed" if packed else "int8"},
+           dev, hb, valid, allele, geno_sel, a1, a2, out, K, S, H, lo, n,
+           int(packed), tally=(LAUNCHES, name))
     return out

@@ -13,25 +13,22 @@ ops.scoring.posterior_scores). For classifier c and sample n they return
 with nothing accumulated across classifiers: the scan prediction engine
 (models/predict.py::_predict_block) weights and sums them itself.
 
-One kernel serves both TPU kernels. `ensemble_scores` is its only launch
-site: on a CUDA tensor it launches the kernel or raises, on a CPU tensor it
-runs its plain version `ensemble_scores_ref`, a loop over
+One kernel serves both TPU kernels. `ensemble_scores` is its only entry:
+on a CUDA tensor it plans the route and launches the kernel or raises, on
+a CPU tensor it runs its plain version `ensemble_scores_ref`, a loop over
 ops.scoring.posterior_scores. `posterior_scores_kernel` (one classifier) and
 `classifier_posteriors` are calls of it at C = 1.
 """
 
 from __future__ import annotations
 
-import threading
-
 import torch
 
 from ..constants import MAXNUM_SNP
-from ..utils import trace
+from ._build import launch, load, pen_table
 from .ens_acc import (PackedHaplotypes, check_inputs, pack_haplotypes,
                       unpack_bits)
 from .scoring import posterior_scores
-from .train_step import pen_table
 
 #: most haplotype slots per classifier the kernel takes (a cell's pair count
 #: is an int32: H^2 < 2^31), as many as the port's trainer can build
@@ -56,15 +53,6 @@ RECORD_BYTES = 256 * 1024 ** 2
 #: kernel launches made by `ensemble_scores`; never the plain version's
 #: (with tracing on, each launch is also recorded: utils/trace.py::launch)
 LAUNCHES = 0
-_COUNT_LOCK = threading.Lock()
-
-
-def _count():
-    """One launch more, under a lock: a mesh's shards launch from
-    several threads."""
-    global LAUNCHES
-    with _COUNT_LOCK:
-        LAUNCHES += 1
 
 
 def check_limits(n_slots: int, n_alleles: int) -> None:
@@ -107,17 +95,23 @@ def scores_plan(H, A, C, N, smem_bytes, budget=SMEM_BYTES,
     return False, NB, C * NB * record_bytes(H)
 
 
-def ensemble_scores(hap: PackedHaplotypes, g: torch.Tensor, n_alleles: int,
-                    *, smem_budget=SMEM_BYTES, record_budget=RECORD_BYTES):
+def ensemble_scores(hap: PackedHaplotypes, g: torch.Tensor, n_alleles: int):
     """(S [C, N, A, A], dmin [C, N], total [C, N]) for genotype codes g int8
     [C, N, 128] gathered to each classifier's SNP slots (3 = missing or
-    padded). `smem_budget` and `record_budget` choose the kernel's route
-    (`scores_plan`); every route gives bitwise the same results."""
+    padded), on a CUDA tensor under `scores_plan`'s route."""
     _check(hap, g, n_alleles)
     if g.device.type == "cpu":
         return ensemble_scores_ref(hap, g, n_alleles)
-    from . import _build
+    return _scores_launch(hap, g, n_alleles, *scores_plan(
+        hap.n_slots, n_alleles, hap.n_classifiers, int(g.shape[1]),
+        load().hibag_post_scores_smem))
 
+
+def _scores_launch(hap: PackedHaplotypes, g: torch.Tensor, n_alleles: int,
+                   shared, NB, nrec):
+    """The scoring kernel's outputs on checked CUDA inputs, launched (unless
+    C or N is 0) under the given route (`scores_plan`'s (shared, NB,
+    scratch bytes))."""
     C, N, A = hap.n_classifiers, int(g.shape[1]), n_alleles
     dev = g.device
     S = torch.empty((C, N, A, A), dtype=torch.float32, device=dev)
@@ -125,31 +119,17 @@ def ensemble_scores(hap: PackedHaplotypes, g: torch.Tensor, n_alleles: int,
     total = torch.empty((C, N), dtype=torch.float32, device=dev)
     if N == 0 or C == 0:
         return S, dmin, total
-    lib = _build.load()
     tab = pen_table(dev)
     # the cells' running minima, where they do not fit in shared memory
-    per = lib.hibag_post_scores_scratch(A)
+    per = load().hibag_post_scores_scratch(A)
     scratch = (torch.empty(C * N * per, dtype=torch.uint8, device=dev)
                if per else None)
-    shared, NB, nrec = scores_plan(hap.n_slots, A, C, N,
-                                   lib.hibag_post_scores_smem, smem_budget,
-                                   record_budget)
     records = (None if shared else
                torch.empty(nrec // 4, dtype=torch.int32, device=dev))
-    ptr = lambda x: None if x is None else x.data_ptr()
-    with torch.cuda.device(dev), trace.launch(
-            "post_scores", {"C": C, "N": N, "H": hap.n_slots, "A": A},
-            device=dev) as rec:
-        err = lib.hibag_post_scores(
-            hap.hb.data_ptr(), hap.freq.data_ptr(), hap.allele.data_ptr(),
-            hap.nh.data_ptr(), g.data_ptr(), tab.data_ptr(), S.data_ptr(),
-            dmin.data_ptr(), total.data_ptr(), ptr(scratch), ptr(records), C,
-            hap.n_slots, N, A, NB,
-            torch.cuda.current_stream(dev).cuda_stream, *rec.marks)
-    if err != 0:
-        msg = lib.hibag_cuda_error_string(err).decode()
-        raise RuntimeError(f"scoring kernel launch failed: {msg} ({err})")
-    _count()
+    launch("hibag_post_scores", "post_scores",
+           {"C": C, "N": N, "H": hap.n_slots, "A": A}, dev, hap.hb, hap.freq,
+           hap.allele, hap.nh, g, tab, S, dmin, total, scratch, records, C,
+           hap.n_slots, N, A, NB, tally=(globals(), "LAUNCHES"))
     return S, dmin, total
 
 

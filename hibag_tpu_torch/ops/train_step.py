@@ -9,21 +9,21 @@ Counterparts of hibag_tpu/ops/train_step_pallas.py:
 * `evaluate_candidates_kernel` — `evaluate_candidates_pallas`
   (_eval_kernel): OOB accuracy counts and in-bag -2logLik.
 
-On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
-it runs the plain version (`*_ref`), which is models/em.py's arithmetic.
-Both kernels are deterministic: the same inputs give bitwise the same
-outputs (no float atomics).
+Each wrapper checks its inputs, takes CUDA tensors only, plans the launch
+from the shapes and launches its kernel or raises. The plain versions are
+models/em.py's `em_estep_ref`, `em_estep_packed_ref` and
+`evaluate_candidates`; the trainer picks kernel or plain version by its
+``engine``. Both kernels are deterministic: the same inputs give bitwise
+the same outputs (no float atomics).
 """
 
 from __future__ import annotations
 
-import threading
-
 import torch
 
-from ..constants import LOG_MIN_RARE_FREQ, MAXNUM_SNP
-from ..models import em
+from ..constants import MAXNUM_SNP
 from ..utils import trace
+from ._build import cuda_only, launch, load, pen_table
 
 #: the EM kernels' limits: H a multiple of EM_H_MULTIPLE up to EM_MAX_H
 #: (their pair and row lists hold slot indices in 16 bits), and 1..MAX_C
@@ -61,35 +61,10 @@ EM_PACKED_WARPS = 8
 EM_PAIR_LIST = 64
 EM_SMEM_BYTES = 224 * 1024
 
-#: kernel launches made by each wrapper; never the plain versions' (with
-#: tracing on, each launch is also recorded: utils/trace.py::launch)
+#: kernel launches made by each wrapper (with tracing on, each launch is
+#: also recorded: utils/trace.py::launch)
 LAUNCHES = {"em_estep": 0, "em_estep_packed": 0,
             "evaluate_candidates_kernel": 0}
-_COUNT_LOCK = threading.Lock()
-
-
-def _count(name):
-    """One launch more, under a lock: a mesh's shards launch from
-    several threads."""
-    with _COUNT_LOCK:
-        LAUNCHES[name] += 1
-
-
-def _same_device(*xs):
-    dev = xs[0].device
-    if any(x.device != dev for x in xs):
-        raise ValueError("all inputs must be on one device")
-    if not all(x.is_contiguous() for x in xs):
-        raise ValueError("all inputs must be contiguous")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
-
-
-def _raise_if_failed(lib, err, what):
-    if err != 0:
-        msg = lib.hibag_cuda_error_string(err).decode()
-        raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
 
 
 # ---------------------------------------------------------------------------
@@ -118,35 +93,11 @@ def _check_em(fA, fB, mask, gc, B, packed):
         raise ValueError(f"g_cand must be int8 [{K}, {C}, {S}]")
     if B.dtype != torch.float32 or tuple(B.shape) != (K, S):
         raise ValueError(f"B must be float32 [{K}, {S}]")
-    dev = _same_device(fA, fB, mask, gc, B)
-    if dev.type == "cuda" and mask.data_ptr() % 16:
+    name = "em_estep_packed" if packed else "em_estep"
+    cuda_only(name, f"models/em.py::{name}_ref", fA, fB, mask, gc, B)
+    if mask.data_ptr() % 16:
         raise ValueError("mask must be 16-byte aligned")
     return K, C, H, S
-
-
-def _em_launch(fA, fB, mask, gc, B, total_n):
-    from . import _build
-
-    K, C, H = fA.shape
-    S = mask.shape[1]
-    dev = fA.device
-    dfA = torch.empty_like(fA)
-    dfB = torch.empty_like(fB)
-    dll = torch.empty((K, C), dtype=torch.float32, device=dev)
-    G = max(1, min(EM_MAX_GROUPS, -(-S // EM_GROUP_SAMPLES)))
-    part = torch.empty((K, G, 2, C, H), dtype=torch.float32, device=dev)
-    dllp = torch.empty((K, G, C), dtype=torch.float32, device=dev)
-    lib = _build.load()
-    with torch.cuda.device(dev), trace.launch(
-            "em_estep", {"K": K, "S": S, "H": H, "C": C, "tier": "int8"},
-            device=dev) as rec:
-        err = lib.hibag_em_estep(
-            mask.data_ptr(), fA.data_ptr(), fB.data_ptr(), gc.data_ptr(),
-            B.data_ptr(), part.data_ptr(), dllp.data_ptr(), dfA.data_ptr(),
-            dfB.data_ptr(), dll.data_ptr(), K, S, H, C, G, float(total_n),
-            torch.cuda.current_stream(dev).cuda_stream, *rec.marks)
-    _raise_if_failed(lib, err, "EM")
-    return dfA, dfB, dll
 
 
 def em_packed_plan(H, C, S, smem_bytes, budget=EM_SMEM_BYTES,
@@ -170,34 +121,14 @@ def em_packed_plan(H, C, S, smem_bytes, budget=EM_SMEM_BYTES,
     return G, R, False
 
 
-def _em_packed_launch(fA, fB, packed, gc, B, total_n, smem_budget,
-                      pair_list):
-    from . import _build
-
+def _em_outputs(fA, G):
+    """dfA, dfB, dll [K, C] and the per-run partial sums of the EM kernels
+    (part [K, G, 2, C, H], dllp [K, G, C])."""
     K, C, H = fA.shape
-    S = packed.shape[1]
-    dev = fA.device
-    lib = _build.load()
-    G, R, shared = em_packed_plan(H, C, S, lib.hibag_em_packed_smem,
-                                  smem_budget, pair_list)
-    dfA = torch.empty_like(fA)
-    dfB = torch.empty_like(fB)
-    dll = torch.empty((K, C), dtype=torch.float32, device=dev)
-    part = torch.empty((K, G, 2, C, H), dtype=torch.float32, device=dev)
-    dllp = torch.empty((K, G, C), dtype=torch.float32, device=dev)
-    tmask = torch.empty((K, G, H // 32), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev), trace.launch(
-            "em_estep_packed",
-            {"K": K, "S": S, "H": H, "C": C, "tier": "packed"},
-            device=dev) as rec:
-        err = lib.hibag_em_packed(
-            packed.data_ptr(), fA.data_ptr(), fB.data_ptr(), gc.data_ptr(),
-            B.data_ptr(), part.data_ptr(), dllp.data_ptr(), tmask.data_ptr(),
-            dfA.data_ptr(), dfB.data_ptr(), dll.data_ptr(), K, S, H, C, G, R,
-            pair_list, int(shared), float(total_n),
-            torch.cuda.current_stream(dev).cuda_stream, *rec.marks)
-    _raise_if_failed(lib, err, "packed EM")
-    return dfA, dfB, dll
+    f32 = dict(dtype=torch.float32, device=fA.device)
+    return (torch.empty_like(fA), torch.empty_like(fA),
+            torch.empty((K, C), **f32), torch.empty((K, G, 2, C, H), **f32),
+            torch.empty((K, G, C), **f32))
 
 
 def em_estep(fA, fB, mask, g_cand, B, total_n):
@@ -206,52 +137,44 @@ def em_estep(fA, fB, mask, g_cand, B, total_n):
     g_cand int8 [K, C, S] the candidates' genotype codes; B float32 [K, S]
     bootstrap counts; total_n the sample count. Returns (dfA, dfB
     [K, C, H], dll [K, C])."""
-    _check_em(fA, fB, mask, g_cand, B, packed=False)
-    if fA.device.type == "cpu":
-        return em_estep_ref(fA, fB, mask, g_cand, B, total_n)
-    out = _em_launch(fA, fB, mask, g_cand, B, total_n)
-    _count("em_estep")
-    return out
+    K, C, H, S = _check_em(fA, fB, mask, g_cand, B, packed=False)
+    G = max(1, min(EM_MAX_GROUPS, -(-S // EM_GROUP_SAMPLES)))
+    dfA, dfB, dll, part, dllp = _em_outputs(fA, G)
+    launch("hibag_em_estep", "em_estep",
+           {"K": K, "S": S, "H": H, "C": C, "tier": "int8"}, fA.device,
+           mask, fA, fB, g_cand, B, part, dllp, dfA, dfB, dll, K, S, H, C, G,
+           float(total_n), tally=(LAUNCHES, "em_estep"))
+    return dfA, dfB, dll
 
 
-def em_estep_packed(fA, fB, packed, g_cand, B, total_n, *,
-                    smem_budget=EM_SMEM_BYTES, pair_list=EM_PAIR_LIST):
+def em_estep_packed(fA, fB, packed, g_cand, B, total_n):
     """`em_estep` from the bit-packed mask uint8 [K, S, H, H // 8] (bit b of
-    byte k is column 8k + b). `smem_budget` caps the kernel's shared memory
-    and `pair_list` the pairs a warp lists per sample (`em_packed_plan`);
-    every setting gives bitwise the same results."""
-    _check_em(fA, fB, packed, g_cand, B, packed=True)
-    if fA.device.type == "cpu":
-        return em_estep_packed_ref(fA, fB, packed, g_cand, B, total_n)
-    out = _em_packed_launch(fA, fB, packed, g_cand, B, total_n, smem_budget,
-                            pair_list)
-    _count("em_estep_packed")
-    return out
+    byte k is column 8k + b), under `em_packed_plan`'s plan."""
+    K, C, H, S = _check_em(fA, fB, packed, g_cand, B, packed=True)
+    G, R, shared = em_packed_plan(H, C, S, load().hibag_em_packed_smem)
+    return _em_packed_launch(fA, fB, packed, g_cand, B, total_n, G, R,
+                             shared, EM_PAIR_LIST)
 
 
-def em_estep_ref(fA, fB, mask, g_cand, B, total_n):
-    """Plain PyTorch version of `em_estep`."""
-    m = em._geno_sel_masks(g_cand, fA.dtype)
-    return em.em_estep_masked(fA, fB, mask, B, m, total_n)
-
-
-def em_estep_packed_ref(fA, fB, packed, g_cand, B, total_n):
-    """Plain PyTorch version of `em_estep_packed`."""
-    m = em._geno_sel_masks(g_cand, fA.dtype)
-    return em.em_estep_packed(fA, fB, packed, B, m, total_n)
+def _em_packed_launch(fA, fB, packed, g_cand, B, total_n, G, R, shared,
+                      pair_list):
+    """One launch of the packed EM kernel on checked CUDA inputs under the
+    given plan (`em_packed_plan`'s (G, R, shared) for `pair_list`)."""
+    K, C, H = fA.shape
+    S = packed.shape[1]
+    dfA, dfB, dll, part, dllp = _em_outputs(fA, G)
+    tmask = torch.empty((K, G, H // 32), dtype=torch.int32, device=fA.device)
+    launch("hibag_em_packed", "em_estep_packed",
+           {"K": K, "S": S, "H": H, "C": C, "tier": "packed"}, fA.device,
+           packed, fA, fB, g_cand, B, part, dllp, tmask, dfA, dfB, dll, K, S,
+           H, C, G, R, pair_list, int(shared), float(total_n),
+           tally=(LAUNCHES, "em_estep_packed"))
+    return dfA, dfB, dll
 
 
 # ---------------------------------------------------------------------------
 # candidate evaluation
 # ---------------------------------------------------------------------------
-
-def pen_table(device) -> torch.Tensor:
-    """float32 [257]: exp(log(1e-5) * d), made on `device` by the same
-    float32 exp as the plain version's penalties (so the kernel's penalty
-    for a distance is bitwise the plain version's)."""
-    d = torch.arange(2 * MAXNUM_SNP + 1, dtype=torch.float32, device=device)
-    return torch.exp(LOG_MIN_RARE_FREQ * d)
-
 
 def _check_eval(bits, allele, fA, fB, g_cand, geno_sel, a1, a2, is_oob, B,
                 n_alleles):
@@ -286,7 +209,9 @@ def _check_eval(bits, allele, fA, fB, g_cand, geno_sel, a1, a2, is_oob, B,
         raise ValueError(f"is_oob must be bool [{K}, {N}]")
     if B.dtype != torch.float32 or tuple(B.shape) != (K, N):
         raise ValueError(f"B must be float32 [{K}, {N}]")
-    _same_device(bits, allele, fA, fB, g_cand, geno_sel, a1, a2, is_oob, B)
+    cuda_only("evaluate_candidates_kernel",
+              "models/em.py::evaluate_candidates", bits, allele, fA, fB,
+              g_cand, geno_sel, a1, a2, is_oob, B)
 
 
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
@@ -361,29 +286,21 @@ def eval_scratch_bytes(M, plan):
 
 
 def evaluate_candidates_kernel(bits, allele, fA, fB, g_cand, geno_sel, a1,
-                               a2, is_oob, B, n_alleles, *,
-                               smem_budget=EVAL_SMEM_BYTES):
+                               a2, is_oob, B, n_alleles):
     """OOB accuracy count and in-bag -2logLik of every candidate of K
     classifiers; the arguments and results of models.em.evaluate_candidates
     (bits float32 [K, H, 128], allele [K, H], fA/fB float32 [K, C, H],
     g_cand int8 [K, C, N], geno_sel int8 [K, N, 128], a1/a2 int32 [N],
     is_oob bool [K, N], B float32 [K, N]) -> (acc int32 [K, C], ll float32
-    [K, C]). `smem_budget` caps the kernel's shared memory (`eval_plan`);
-    every plan gives bitwise the same results."""
+    [K, C]), under `eval_plan`'s plan."""
     _check_eval(bits, allele, fA, fB, g_cand, geno_sel, a1, a2, is_oob, B,
                 n_alleles)
-    if fA.device.type == "cpu":
-        return evaluate_candidates_ref(bits, allele, fA, fB, g_cand,
-                                       geno_sel, a1, a2, is_oob, B,
-                                       n_alleles)
-    from . import _build
-
     N = geno_sel.shape[1]
     if N == 0:
         z = torch.zeros(fA.shape[:2], dtype=torch.int32, device=fA.device)
         return z, z.float()
     M, plan, S = eval_plan(fA.shape[2], n_alleles, fA.shape[1], fA.shape[0],
-                           N, _build.load().hibag_eval_smem, smem_budget)
+                           N, load().hibag_eval_smem)
     return _eval_launch(bits, allele, fA, fB, g_cand, geno_sel, a1, a2,
                         is_oob, B, n_alleles, M, plan, S)
 
@@ -392,15 +309,12 @@ def _eval_launch(bits, allele, fA, fB, g_cand, geno_sel, a1, a2, is_oob, B,
                  n_alleles, M, plan, S):
     """One launch of the evaluation kernel on checked CUDA inputs under the
     given plan (`eval_plan`'s (M, plan, S))."""
-    from . import _build
-
     K, C, H = fA.shape
     N = geno_sel.shape[1]
     A = n_alleles
     dev = fA.device
     acc = torch.empty((K, C), dtype=torch.int32, device=dev)
     ll = torch.empty((K, C), dtype=torch.float32, device=dev)
-    lib = _build.load()
     hb, al, fq, nok = eval_layout(bits, allele, fA, fB, A)
     gscratch = None
     if plan == EVAL_PLAN_RECORDS:
@@ -409,21 +323,12 @@ def _eval_launch(bits, allele, fA, fB, g_cand, geno_sel, a1, a2, is_oob, B,
     oob = is_oob.to(torch.uint8)
     accp = torch.empty((K, C, N), dtype=torch.int32, device=dev)
     llp = torch.empty((K, C, N), dtype=torch.float32, device=dev)
-    tab = pen_table(dev)
-    with torch.cuda.device(dev), trace.launch(
-            "evaluate_candidates_kernel",
-            {"K": K, "N": N, "H": H, "C": C, "A": A, "plan": plan},
-            lambda: eval_counts(allele, fA, fB, geno_sel, A), dev) as rec:
-        err = lib.hibag_eval_cand(
-            hb.data_ptr(), al.data_ptr(), nok.data_ptr(), fq.data_ptr(),
-            g_cand.data_ptr(), geno_sel.data_ptr(), a1.data_ptr(),
-            a2.data_ptr(), oob.data_ptr(), B.data_ptr(), tab.data_ptr(),
-            accp.data_ptr(), llp.data_ptr(),
-            gscratch.data_ptr() if gscratch is not None else None,
-            acc.data_ptr(), ll.data_ptr(), K, H, N, C, A, M, S, plan,
-            torch.cuda.current_stream(dev).cuda_stream, *rec.marks)
-    _raise_if_failed(lib, err, "evaluation")
-    _count("evaluate_candidates_kernel")
+    launch("hibag_eval_cand", "evaluate_candidates_kernel",
+           {"K": K, "N": N, "H": H, "C": C, "A": A, "plan": plan}, dev,
+           hb, al, nok, fq, g_cand, geno_sel, a1, a2, oob, B, pen_table(dev),
+           accp, llp, gscratch, acc, ll, K, H, N, C, A, M, S, plan,
+           tally=(LAUNCHES, "evaluate_candidates_kernel"),
+           counts=lambda: eval_counts(allele, fA, fB, geno_sel, A))
     if plan != EVAL_PLAN_SHARED:
         trace.count("evaluate_candidates_tiled")
     return acc, ll
@@ -446,10 +351,3 @@ def eval_counts(allele, fA, fB, geno_sel, n_alleles) -> torch.Tensor:
     cnt = cnt[:, :A]
     later = (cnt > 0).long().flip(1).cumsum(1).flip(1)
     return torch.stack([ok.sum(1), het.sum((1, 2)), (cnt * later).sum(1)])
-
-
-def evaluate_candidates_ref(bits, allele, fA, fB, g_cand, geno_sel, a1, a2,
-                            is_oob, B, n_alleles):
-    """Plain PyTorch version of `evaluate_candidates_kernel`."""
-    return em.evaluate_candidates(bits, allele, fA, fB, g_cand, geno_sel, a1,
-                                  a2, is_oob, B, n_alleles)

@@ -49,7 +49,9 @@ def kernel_counts(ev, k, c):
     """The evaluation kernel's count of each sample [N] for classifier k's
     candidate c on the evaluation arguments `ev`: one launch over one copy
     of the classifier for each out-of-bag sample, copy i counting only
-    sample i. Their sum must be the batch's own count."""
+    sample i. Their sum must be the batch's own count. On CPU tensors the
+    plain version counts in the kernel's place."""
+    from hibag_tpu_torch.models import em
     from hibag_tpu_torch.ops import train_step as ts
 
     bits, allele, fA, fB, g_cand, geno_sel, a1, a2, is_oob, B, A = ev
@@ -58,7 +60,9 @@ def kernel_counts(ev, k, c):
     rep = lambda x: x[k:k + 1].expand(n, *x.shape[1:]).contiguous()
     one = torch.zeros((n, N), dtype=torch.bool, device=is_oob.device)
     one[torch.arange(n, device=rows.device), rows] = True
-    acc, _ = ts.evaluate_candidates_kernel(
+    evaluate = (ts.evaluate_candidates_kernel if fA.is_cuda
+                else em.evaluate_candidates)
+    acc, _ = evaluate(
         rep(bits), rep(allele), rep(fA[:, c:c + 1]), rep(fB[:, c:c + 1]),
         rep(g_cand[:, c:c + 1]), rep(geno_sel), a1, a2, one, rep(B), A)
     out = torch.zeros(N, dtype=torch.int32, device=acc.device)
@@ -97,7 +101,7 @@ def main(argv):
         ev = (bits, allele, out[0], out[1], g_cand, geno_sel, a1, a2, is_oob,
               B, A)
         acc, _ = ts.evaluate_candidates_kernel(*ev)
-        acc_p, _ = ts.evaluate_candidates_ref(*ev)
+        acc_p, _ = em.evaluate_candidates(*ev)
         if not torch.equal(acc, out[2]):
             raise AssertionError(f"step {i}: the kernel's counts differ from "
                                  "the training's own")

@@ -62,6 +62,28 @@ def test_parallel_and_its_worker_leave_jax_out():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_ops_import_no_models():
+    """The kernel wrappers sit below the models: a fresh interpreter that
+    imports every module of hibag_tpu_torch.ops (past the package's own
+    __init__, which imports everything) loads no hibag_tpu_torch.models
+    module."""
+    mods = sorted(f"hibag_tpu_torch.ops.{p.stem}"
+                  for p in (PKG / "ops").glob("*.py")
+                  if p.name != "__init__.py")
+    assert "hibag_tpu_torch.ops.train_step" in mods
+    code = ("import importlib, sys, types; "
+            "pkg = types.ModuleType('hibag_tpu_torch'); "
+            f"pkg.__path__ = [{str(PKG)!r}]; "
+            "sys.modules['hibag_tpu_torch'] = pkg; "
+            f"[importlib.import_module(m) for m in {mods!r}]; "
+            "bad = sorted(m for m in sys.modules "
+            "if m.startswith('hibag_tpu_torch.models')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 @pytest.mark.parametrize("pattern", [
     r"^\s*(from|import)\s+(jax|jaxlib|hibag_tpu)(\.|\s|$)",
     r"torch\.compile", r"scaled_dot_product_attention"])

@@ -68,9 +68,10 @@ def _t(x, k=True):
 
 @pytest.mark.parametrize("H,A,S", [(4160, 14, 2), (256, 130, 24)])
 def test_plain_em_step_past_the_old_limits(H, A, S):
-    """The EM step's plain version, through the wrapper on CPU tensors, at
-    4,160 slots and at 130 alleles, against hibag_tpu's masked jnp E-step:
-    rtol 1e-4 (tests/test_step_pallas.py), no kernel launched."""
+    """The EM step's plain version (models/em.py::em_estep_ref, the
+    kernel's signature) at 4,160 slots and at 130 alleles, against
+    hibag_tpu's masked jnp E-step: rtol 1e-4 (tests/test_step_pallas.py),
+    no kernel launched."""
     p = _problem(1, H, A, S)
     args = (jnp.asarray(p["bits"]), jnp.asarray(p["freq"] > 0),
             jnp.asarray(p["allele"]), jnp.asarray(p["geno"]),
@@ -81,9 +82,9 @@ def test_plain_em_step_past_the_old_limits(H, A, S):
     want = ref._em_estep_masked(jnp.asarray(p["fA"]), jnp.asarray(p["fB"]),
                                 mask, jnp.asarray(p["B"]), m, float(S))
     before = dict(ts.LAUNCHES)
-    got = ts.em_estep(_t(p["fA"]), _t(p["fB"]),
-                      _t(np.asarray(mask).astype(np.int8)), _t(p["g_cand"]),
-                      _t(p["B"]), float(S))
+    got = em.em_estep_ref(_t(p["fA"]), _t(p["fB"]),
+                          _t(np.asarray(mask).astype(np.int8)),
+                          _t(p["g_cand"]), _t(p["B"]), float(S))
     assert ts.LAUNCHES == before
     for x, y in zip(got, want):
         np.testing.assert_allclose(x[0].numpy(), np.asarray(y), rtol=1e-4,
@@ -93,9 +94,10 @@ def test_plain_em_step_past_the_old_limits(H, A, S):
 @pytest.mark.parametrize("H,A,N", [(4160, 14, 2), (256, 130, 40),
                                    (128, 320, 40)])
 def test_plain_evaluation_past_the_old_limits(H, A, N):
-    """The candidate evaluation's plain version, through the wrapper on CPU
-    tensors, at 4,160 slots and at 130 and 320 alleles, against hibag_tpu's
-    jnp evaluate_candidates: counts exact, -2logLik at rtol 1e-4."""
+    """The candidate evaluation's plain version (models/em.py::
+    evaluate_candidates, the kernel's signature) at 4,160 slots and at 130
+    and 320 alleles, against hibag_tpu's jnp evaluate_candidates: counts
+    exact, -2logLik at rtol 1e-4."""
     p = _problem(2, H, A, N)
     is_oob = np.zeros(N, bool)
     is_oob[::2] = True
@@ -107,7 +109,7 @@ def test_plain_evaluation_past_the_old_limits(H, A, N):
         jnp.asarray(p["a1"]), jnp.asarray(p["a2"]), jnp.asarray(is_oob),
         jnp.asarray(B), A)
     before = dict(ts.LAUNCHES)
-    acc, ll = ts.evaluate_candidates_kernel(
+    acc, ll = em.evaluate_candidates(
         _t(p["bits"]), _t(p["allele"]), _t(p["fAe"]), _t(p["fBe"]),
         _t(p["g_cand"]), _t(p["geno"]), _t(p["a1"], False),
         _t(p["a2"], False), _t(is_oob), _t(B), A)
@@ -161,7 +163,7 @@ def test_wide_steps_per_sample_counts():
     args = (_t(p["bits"]), _t(p["allele"]), _t(p["fAe"]), _t(p["fBe"]),
             _t(p["g_cand"]), _t(p["geno"]), _t(p["a1"], False),
             _t(p["a2"], False), _t(is_oob), _t(p["B"]), 9)
-    acc, _ = ts.evaluate_candidates_kernel(*args)
+    acc, _ = em.evaluate_candidates(*args)
     det = em.evaluate_candidates(*args, detail=True)[2][0]
     assert int(acc.sum()) > 0
     for c in range(3):

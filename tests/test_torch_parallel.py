@@ -380,7 +380,7 @@ def test_launch_counts_under_threads():
     counts each, with the interpreter switching threads every microsecond."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from hibag_tpu_torch.ops import ens_acc, post_scores
+    from hibag_tpu_torch.ops import _build, ens_acc, post_scores
     from hibag_tpu_torch.ops import train_step as ts
 
     n_threads, n = 16, 2000
@@ -393,9 +393,9 @@ def test_launch_counts_under_threads():
 
         def work():
             for _ in range(n):
-                ens_acc._count()
-                post_scores._count()
-                ts._count("em_estep")
+                _build.count((vars(ens_acc), "LAUNCHES"))
+                _build.count((vars(post_scores), "LAUNCHES"))
+                _build.count((ts.LAUNCHES, "em_estep"))
 
         with ThreadPoolExecutor(max_workers=n_threads) as pool:
             futures = [pool.submit(work) for _ in range(n_threads)]

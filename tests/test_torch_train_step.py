@@ -1,7 +1,9 @@
-"""The training-step kernels' plain versions (hibag_tpu_torch.ops.train_step)
-held against hibag_tpu's TPU kernels run in Pallas interpret mode, as
-tests/test_step_pallas.py runs them, and the wrappers' checks. The CUDA
-kernels themselves run only on a card (tests/test_torch_gpu.py)."""
+"""The training-step kernels' plain versions (models/em.py's em_estep_ref,
+em_estep_packed_ref and evaluate_candidates, under the signatures of
+hibag_tpu_torch.ops.train_step's wrappers) held against hibag_tpu's TPU
+kernels run in Pallas interpret mode, as tests/test_step_pallas.py runs
+them, and the wrappers' checks. The CUDA kernels themselves run only on a
+card (tests/test_torch_gpu.py)."""
 
 import os
 
@@ -13,6 +15,8 @@ import torch
 from hibag_tpu.models.em import _geno_sel_masks, match_pairs, \
     match_pairs_packed
 from hibag_tpu.ops import train_step_pallas as tpu
+from hibag_tpu_torch.models import em
+from hibag_tpu_torch.ops import _build
 from hibag_tpu_torch.ops import train_step as ts
 
 torch.set_num_threads(2)
@@ -67,9 +71,10 @@ def test_em_estep_plain_matches_em_kernel(N):
     want = tpu.em_estep_pallas(fa_p, fb_p, maskT, m3, B2, 24.0,
                                interpret=True)
     before = dict(ts.LAUNCHES)
-    got = ts.em_estep(_t(fA), _t(fB), _t(np.asarray(mask).astype(np.int8)),
-                      _t(g_cand), _t(B), 24.0)
-    assert ts.LAUNCHES == before   # the CPU runs the plain version
+    got = em.em_estep_ref(_t(fA), _t(fB),
+                          _t(np.asarray(mask).astype(np.int8)), _t(g_cand),
+                          _t(B), 24.0)
+    assert ts.LAUNCHES == before   # the plain version launches nothing
     np.testing.assert_allclose(got[0][0].numpy(), np.asarray(want[0][:Cm]),
                                rtol=1e-4, atol=1e-9)
     np.testing.assert_allclose(got[1][0].numpy(), np.asarray(want[1][:Cm]),
@@ -89,8 +94,8 @@ def test_em_estep_packed_plain_matches_packed_kernel():
     fa_p, fb_p = tpu.em_pad_candidates(jnp.asarray(fA), jnp.asarray(fB), cp)
     want = tpu.em_estep_pallas_packed(fa_p, fb_p, packedT, m3, B2, 24.0,
                                       interpret=True)
-    got = ts.em_estep_packed(_t(fA), _t(fB), _t(np.asarray(packed)),
-                             _t(g_cand), _t(B), 24.0)
+    got = em.em_estep_packed_ref(_t(fA), _t(fB), _t(np.asarray(packed)),
+                                 _t(g_cand), _t(B), 24.0)
     np.testing.assert_allclose(got[0][0].numpy(), np.asarray(want[0][:Cm]),
                                rtol=1e-4, atol=1e-9)
     np.testing.assert_allclose(got[1][0].numpy(), np.asarray(want[1][:Cm]),
@@ -116,7 +121,7 @@ def test_evaluate_plain_matches_eval_kernel(seed, N, H, drop):
         jnp.asarray(a12[0]), jnp.asarray(a12[1]), jnp.asarray(is_oob),
         jnp.asarray(B), A, interpret=True)
     before = dict(ts.LAUNCHES)
-    acc, ll = ts.evaluate_candidates_kernel(
+    acc, ll = em.evaluate_candidates(
         _t(bits), _t(allele), _t(fA), _t(fB), _t(g_cand), _t(geno_sel),
         torch.from_numpy(a12[0].copy()), torch.from_numpy(a12[1].copy()),
         _t(is_oob), _t(B), A)
@@ -127,7 +132,7 @@ def test_evaluate_plain_matches_eval_kernel(seed, N, H, drop):
 
 def test_pen_table_is_the_plain_penalty():
     from hibag_tpu_torch.constants import LOG_MIN_RARE_FREQ
-    tab = ts.pen_table(torch.device("cpu"))
+    tab = _build.pen_table(torch.device("cpu"))
     d = torch.arange(257, dtype=torch.float32)
     assert torch.equal(tab, torch.exp(LOG_MIN_RARE_FREQ * d))
     assert tab[0] == 1 and tab[256] == 0
@@ -301,7 +306,9 @@ def _em_args(K=1, C=3, H=64, S=8, packed=False):
 @pytest.mark.parametrize("packed", [False, True])
 def test_em_wrapper_raises_on_what_the_kernel_does_not_take(packed):
     fn = ts.em_estep_packed if packed else ts.em_estep
-    fn(*_em_args(packed=packed))          # a shape it takes
+    plain = "em_estep_packed_ref" if packed else "em_estep_ref"
+    with pytest.raises(ValueError, match=f"CUDA tensors only.*{plain}"):
+        fn(*_em_args(packed=packed))      # a shape it takes, on the CPU
     with pytest.raises(ValueError, match="MAX_C"):
         fn(*_em_args(C=ts.MAX_C + 1, packed=packed))
     with pytest.raises(ValueError, match="EM_H_MULTIPLE"):
@@ -335,7 +342,9 @@ def _eval_args(K=1, C=3, H=64, N=8, A=6):
 
 
 def test_eval_wrapper_raises_on_what_the_kernel_does_not_take():
-    ts.evaluate_candidates_kernel(*_eval_args())
+    with pytest.raises(ValueError,
+                       match="CUDA tensors only.*evaluate_candidates"):
+        ts.evaluate_candidates_kernel(*_eval_args())   # on the CPU
     with pytest.raises(ValueError, match="MAX_C"):
         ts.evaluate_candidates_kernel(*_eval_args(C=ts.MAX_C + 1))
     with pytest.raises(ValueError, match="EVAL_MAX_A"):
