@@ -89,17 +89,31 @@ Phases, one line each (any failure raises and the exit code is non-zero):
                warp-split cells; one at 300 alleles, where the cells' minima
                go to device scratch) and a case of ordered pairs within and
                across alleles; dmin exact, S exactly symmetric, S and total
-               at rtol 2e-4 and atol 1e-30, two runs bitwise equal. Then a
+               at rtol 2e-4 and atol 1e-30, two runs bitwise equal. The
+               kernel's fold mode (fold_scores) against its S mode plus the
+               plain fold (fold_into) and against its plain version
+               (fold_scores_ref) at 160, 200 and 1,024 alleles, both
+               slot-record routes, an uneven chunk and one classifier: dmin
+               and total bitwise the S mode's, ens within FOLD_RTOL of the S
+               mode's fold and within rtol 2e-4 of the plain version's, two
+               runs bitwise equal; blocks per SM and the kernels' ptxas
+               registers printed. Then a
                seeded synthetic model at the published HLA-A model's width
                (100 classifiers, 1,000 SNPs) with 160 alleles and 600-1,600
                haplotypes per classifier, wider than the ensemble kernel
                takes, saved to .npz and loaded back; the kernel timed at the
                scan engine's chunk shape (SCAN_CCHUNK classifiers) and at one
-               classifier beside its plain version; predict(device="cuda")
-               on 1,024 samples twice, the second timed, and the repeat
-               checks of phase 4. Checks that the
-               scoring kernel ran in the timed run and the ensemble kernel
-               did not, accuracy >= 0.9, sane probabilities and matching, and
+               classifier beside its plain version, and its fold mode at the
+               chunk shape beside the S mode plus the plain fold (what the
+               scan engine ran before) and its plain version;
+               predict(device="cuda")
+               on 1,024 samples twice, the second timed, the repeat checks
+               of phase 4, and once with the majority vote to count the S
+               mode's launches. Checks that the
+               scoring kernel ran in the timed run (every chunk in its fold
+               mode: a traced call's predict.scan_fused counts and launch
+               records) and the ensemble kernel did not, accuracy >= 0.9,
+               sane probabilities and matching, and
                calls equal to the float64 scan engine on the first 64 samples
                outside the tie margin.
   8. host    — the host trainer on the card: train_parallel(mode="host",
@@ -217,6 +231,9 @@ RTOL = 3e-4
 ATOL = 1e-7
 #: the scoring kernel's tolerance (tests/test_pallas.py:33-38)
 SCORE_RTOL, SCORE_ATOL = 2e-4, 1e-30
+#: the fold mode against the S mode plus the plain fold: the same terms,
+#: summed over a chunk's classifiers in another order
+FOLD_RTOL = 1e-6
 
 #: H100 SXM data sheet: device-memory rate and float32 rate outside the
 #: tensor cores
@@ -1586,6 +1603,110 @@ def _check_scores(hap, g, A, label, tie=False):
     return err
 
 
+def _check_fold(hap, g, w, A, label, route=None):
+    """The scoring kernel's fold mode twice on (hap, g, w) (under `route`,
+    a post_scores.fold_plan triple, else its own plan) against its S mode
+    plus the plain fold (post_scores.fold_into) and against its plain
+    version (post_scores.fold_scores_ref): dmin and total bitwise the S
+    mode's, the two runs bitwise equal, ens exactly symmetric and within
+    FOLD_RTOL of the S mode's fold; dmin equal to the plain version's,
+    total and ens within SCORE_RTOL and SCORE_ATOL of it. Returns ens's max
+    relative error against the S mode's fold and against the plain
+    version."""
+    from hibag_tpu_torch.ops import post_scores as ps
+
+    N = int(g.shape[1])
+
+    def run():
+        ens = torch.zeros((N, A, A), dtype=torch.float32, device=g.device)
+        if route is None:
+            dmin, total = ps.fold_scores(hap, g, w, A, ens)
+        else:
+            dmin, total = ps._fold_launch(hap, g, w, A, ens, *route)
+        return ens, dmin, total
+
+    out, out2 = run(), run()
+    S, dmin, total = ps.ensemble_scores(hap, g, A)
+    want = torch.zeros_like(out[0])
+    ps.fold_into(want, S, total, w)
+    del S
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(out, out2)):
+        raise AssertionError(f"{label}: two fold runs differ")
+    if not (torch.equal(out[1], dmin) and torch.equal(out[2], total)):
+        raise AssertionError(f"{label}: the fold mode's dmin or total differ "
+                             "from the S mode's")
+    if not torch.equal(out[0], out[0].transpose(1, 2)):
+        raise AssertionError(f"{label}: the folded cells are not symmetric")
+    rel = _close(f"{label} fold", out[0], want, FOLD_RTOL, 0.0)[1]
+    want.zero_()
+    dmin, total = ps.fold_scores_ref(hap, g, w, A, want)
+    torch.cuda.synchronize()
+    if not torch.equal(out[1], dmin):
+        raise AssertionError(f"{label}: the fold mode's dmin differs from "
+                             "the plain version's")
+    _close(f"{label} plain total", out[2], total, SCORE_RTOL, SCORE_ATOL)
+    plain = _close(f"{label} plain fold", out[0], want, SCORE_RTOL,
+                   SCORE_ATOL)[1]
+    return rel, plain
+
+
+def _fold_bound(hap, g, A):
+    """_bound of one fold-mode launch: haplotypes, codes and weights in,
+    ens read and written, dmin and total out; _scores_bound's popcounts
+    and multiply-adds."""
+    C, N = hap.n_classifiers, int(g.shape[1])
+    return _bound(_hap_bytes(hap) + g.numel() + 4 * C * N + 8 * N * A * A
+                  + 8 * C * N, popc=_pair_popc(hap.nh, g),
+                  flops=2 * _pairs(hap.nh, N))
+
+
+def _fold_checks(dev):
+    """The fold mode against the S mode plus the plain fold on random
+    inputs: both record routes at 160 alleles (a full and an uneven chunk),
+    past 180 alleles and at 1,024, and one classifier; prints each route's
+    blocks per SM."""
+    from hibag_tpu_torch.ops import _build
+    from hibag_tpu_torch.ops import post_scores as ps
+
+    lib = _build.load()
+    rng = np.random.default_rng(SEED + 17)
+    for C, H, A, N in ((8, 1216, 160, 512), (4, 1216, 160, 512),
+                       (8, 1216, 200, 256), (8, 640, 1024, 16),
+                       (1, 600, 160, 64)):
+        hap, g, _ = _score_case(rng, C, H, A, N, dev)
+        w = torch.from_numpy(rng.random((C, N)).astype(np.float32)).to(dev)
+        w[:, 3] = 0.0
+        plan = ps.fold_plan(H, A, N, lib.hibag_post_scores_fold_smem,
+                            lib.hibag_post_scores_fold_scratch)
+        NB = min(100, N)
+        for route in (plan, (False, NB, NB * ps.record_bytes(H))):
+            rel, plain = _check_fold(hap, g, w, A,
+                                     f"C={C} H={H} A={A} N={N}", route)
+            print(f"[wide-kernel] fold mode C={C} H={H} A={A} N={N}, records "
+                  f"{'shared' if route[0] else 'device'} (NB {route[1]}, "
+                  f"{lib.hibag_post_scores_blocks_per_sm(1, H, A, int(route[0]))}"
+                  f" blocks/SM): dmin and total bitwise the S mode's, two "
+                  f"runs bitwise equal, ens max rel err {rel:.3e} (S mode "
+                  f"+ plain fold), {plain:.3e} (plain version)")
+
+
+def _ptxas_lines(what):
+    """The build's `ptxas -v` lines (registers, spills) of the kernels whose
+    names contain `what`."""
+    from hibag_tpu_torch.ops import _build
+
+    log = open(os.path.join(_build.BUILD_DIR, "ptxas.log")).read().splitlines()
+    out = []
+    for i, line in enumerate(log):
+        if "Compiling entry function" in line and what in line:
+            name = line.split("'")[1]
+            info = [l.split(":", 1)[-1].strip() for l in log[i + 1:i + 4]
+                    if "Used" in l or "spill" in l]
+            out.append(f"{name}: {'; '.join(info)}")
+    return out
+
+
 def _scores_bound(hap, g, A):
     """_bound of one scoring launch: haplotypes and codes in, S, dmin and
     total out; _pair_popc's popcounts, and a multiply-add per unordered
@@ -1625,6 +1746,7 @@ def phase_wide_kernels(dev):
                SCORE_RTOL, SCORE_ATOL)
     print("[wide-kernel] ordered pairs within and across alleles: both entry "
           "points equal the float64 sum over ordered pairs")
+    _fold_checks(dev)
     return err
 
 
@@ -1665,8 +1787,9 @@ def phase_wide(dev, card, keep=None):
     from hibag_tpu_torch import predict
     from hibag_tpu_torch.data.geno import align_to_model
     from hibag_tpu_torch.models import predict as predict_mod
-    from hibag_tpu_torch.ops import ens_acc
+    from hibag_tpu_torch.ops import _build, ens_acc
     from hibag_tpu_torch.ops import post_scores as ps
+    from hibag_tpu_torch.utils import trace
 
     err = phase_wide_kernels(dev)
     model, geno, true1, true2 = _wide_case()
@@ -1681,7 +1804,7 @@ def phase_wide(dev, card, keep=None):
     hap = predict_mod._prepare_ensemble(packed, dev)
     codes, _ = align_to_model(model, geno)
     cc = predict_mod.SCAN_CCHUNK
-    g, _ = predict_mod._gather_codes(
+    g, w = predict_mod._gather_codes(
         torch.from_numpy(packed.snp_index[:cc]).to(dev),
         torch.from_numpy(packed.snp_weight).to(dev),
         torch.from_numpy(codes).to(dev))
@@ -1702,6 +1825,40 @@ def phase_wide(dev, card, keep=None):
               f"{plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
               f"({bound['bound_by']}) | {card}")
 
+    # the fold mode at the chunk shape: the S mode plus the plain fold is
+    # what the scan engine ran before it
+    part = hap.subset(0, cc)
+    rel, rel_plain = _check_fold(part, g, w, A, "wide chunk fold_scores")
+    lib = _build.load()
+    plan = ps.fold_plan(part.n_slots, A, N_WIDE,
+                        lib.hibag_post_scores_fold_smem,
+                        lib.hibag_post_scores_fold_scratch)
+    ens = torch.zeros((N_WIDE, A, A), device=dev)
+
+    def s_and_fold():
+        S, _, total = ps.ensemble_scores(part, g, A)
+        ps.fold_into(ens, S, total, w)
+
+    ms = _cuda_ms(lambda: ps.fold_scores(part, g, w, A, ens), 5)
+    s_ms = _cuda_ms(s_and_fold, 5)
+    plain_ms = _cuda_ms(lambda: ps.fold_scores_ref(part, g, w, A, ens), 1)
+    bound = _fold_bound(part, g, A)
+    timing["fold_scores"] = {"max_rel_err": rel_plain,
+                             "s_mode_max_rel_err": rel, "ms": ms,
+                             "plain_ms": plain_ms, "s_mode_ms": s_ms, **bound}
+    print(f"[wide-kernel] fold_scores at C={cc} N={N_WIDE} H={part.n_slots} "
+          f"A={A}: ens max rel err {rel:.3e} against the S mode plus the "
+          f"plain fold, {rel_plain:.3e} against the plain version; kernel "
+          f"{ms:.4f} ms, S mode + plain fold {s_ms:.4f} "
+          f"ms, plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']}); records {'shared' if plan[0] else 'device'}"
+          f", {lib.hibag_post_scores_blocks_per_sm(1, part.n_slots, A, int(plan[0]))}"
+          f" blocks/SM (S mode "
+          f"{lib.hibag_post_scores_blocks_per_sm(0, part.n_slots, A, 1)}) "
+          f"| {card}")
+    for line in _ptxas_lines("post_scores"):
+        print(f"[wide-kernel] ptxas {line}")
+
     # the main path: predict() of the wide model, counted on the timed run
     predict(model, geno, device="cuda")
     torch.cuda.synchronize()
@@ -1713,6 +1870,24 @@ def phase_wide(dev, card, keep=None):
     elapsed = time.perf_counter() - t0
     launches, ens_launches = ps.LAUNCHES, ens_acc.LAUNCHES
     _repeatable("wide", predict, model, geno, res)
+    # the S mode's launches, counted on a run of its own (the majority vote)
+    ps.LAUNCHES = 0
+    predict(model, geno, device="cuda", vote="majority")
+    s_launches = ps.LAUNCHES
+    trace.reset()
+    trace.enable()
+    try:
+        predict(model, geno, device="cuda")
+        counters = trace.summary()["counters"]
+        folds = {r["dims"]["fold"] for r in trace.snapshot()["launches"]
+                 if r["name"] == "post_scores"}
+    finally:
+        trace.disable()
+        trace.reset()
+    if not (counters["predict.scan_fused"] == counters["predict.scan_chunks"]
+            == launches and folds == {1}):
+        raise AssertionError(f"wide: not every chunk took the fold mode "
+                             f"({counters}, launch dims fold {folds})")
     peak = torch.cuda.max_memory_allocated(dev)
     chunks = -(-model.n_classifiers // cc)
     if launches < 1 or launches % chunks:
@@ -1744,13 +1919,16 @@ def phase_wide(dev, card, keep=None):
           f"({int((nh > ens_acc.MAX_H).sum())} above {ens_acc.MAX_H}); "
           f"{N_WIDE / elapsed:.1f} samples/s ({elapsed * 1e3:.2f} ms, "
           f"SCAN_CCHUNK={cc}), peak device memory {peak / 2**30:.3f} GiB; "
-          f"scoring kernel launches {launches}, ens_acc 0; two calls "
+          f"scoring kernel launches {launches} (every chunk in the fold "
+          f"mode; the majority vote's S mode {s_launches}), ens_acc 0; two "
+          f"calls "
           f"bitwise equal; accuracy "
           f"{acc:.4f}; f64 calls equal on {int(clear.sum())}/{N_WIDE_F64} "
           f"clear samples | {card}")
     if keep is not None:
         keep.update(wide=(model, geno, res), wide_rate=N_WIDE / elapsed)
-    return {"launches": launches, **timing["ensemble_scores"]}
+    return ({"launches": launches, **timing["fold_scores"]},
+            {"launches": s_launches, **timing["ensemble_scores"]})
 
 
 def _cli(argv):
@@ -2885,7 +3063,7 @@ def main():
     train_timing = phase_train_kernels(dev)
     train_launches, fused_rate = phase_train(card, art)
     train_launches["em_estep_packed"] = phase_packed(card, art)
-    wide = phase_wide(dev, card, art)
+    wide_fold, wide_s = phase_wide(dev, card, art)
     phase_host(card, fused_rate, art)
     phase_files(card, model, geno, true1, true2, res, clear)
     phase_limits(dev, card)
@@ -2912,12 +3090,20 @@ def main():
                         "replaces": "none (jnp in hibag_tpu/models/em.py:88)",
                         "launches": train_launches[name],
                         **train_timing[name]})
-    # one kernel serves _kernel (one classifier) and _kernel_ens (a chunk)
+    # one kernel serves _kernel (one classifier) and _kernel_ens (a chunk):
+    # its fold mode (post_scores_fold_kernel, entered through fold_scores)
+    # is the probability vote's main path, its S mode (post_scores_kernel)
+    # the majority vote's, float64's and one classifier's
+    kernels.append({"name": "post_scores_fold", "route": "cuda",
+                    "source": "hibag_tpu_torch/csrc/post_scores.cu",
+                    "replaces": "hibag_tpu/ops/scoring_pallas.py:116 and "
+                                "the fold in hibag_tpu/models/predict.py:35",
+                    **wide_fold})
     kernels.append({"name": "post_scores", "route": "cuda",
                     "source": "hibag_tpu_torch/csrc/post_scores.cu",
                     "replaces": "hibag_tpu/ops/scoring_pallas.py:33, "
                                 "hibag_tpu/ops/scoring_pallas.py:116",
-                    **wide})
+                    **wide_s})
     # no single PyTorch call computes any of these functions
     for k in kernels:
         k["library_ms"] = None

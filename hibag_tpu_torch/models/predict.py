@@ -17,9 +17,12 @@ Two engines, chosen openly by the model's shape:
     for every model that kernel takes (ens_acc.fits: at most 1,024
     haplotypes per classifier and 128 alleles), and engine="pallas" always
     (it raises for a model the kernel does not take);
-  * the scan engine (_scan_raw): chunks of SCAN_CCHUNK classifiers,
-    each chunk one call of ops.post_scores.ensemble_scores, then
-    per-classifier weights, majority votes and matching in torch ops.
+  * the scan engine (_scan_raw): chunks of SCAN_CCHUNK classifiers, each
+    chunk one launch of the scoring kernel (ops/post_scores.py). For the
+    probability vote in float32 its fold mode (fold_scores) adds the
+    chunk's weighted posteriors into the block's sums itself; the majority
+    vote and float64 take its S mode (ensemble_scores) and fold S in torch
+    ops. Weights and matching are torch ops.
     engine="auto" takes it for the wider models, as hibag_tpu.predict does
     (hibag_tpu/models/predict.py:505-519), and engine="jnp" (or its alias
     "scan") always. Its kernel takes 4,096 haplotypes per classifier and
@@ -44,7 +47,7 @@ from ..constants import GENO_MISSING, LOG_MIN_RARE_FREQ, MAXNUM_SNP
 from ..device import resolve_device
 from ..ops import ens_acc, post_scores
 from ..ops.ens_acc import PackedHaplotypes, ensemble_accumulate
-from ..ops.post_scores import ensemble_scores
+from ..ops.post_scores import ensemble_scores, fold_into, fold_scores
 from ..ops.scoring import majority_hits, posterior_scores, unordered_from_S
 from ..utils import trace
 from .convert import ensemble_from_packed
@@ -59,49 +62,56 @@ def _log_match(w, total, dmin):
     return torch.where(w > 0, lm, -torch.inf)
 
 
-#: classifiers per launch of the scan engine's scoring kernel: a launch is
-#: cchunk * n blocks of one (classifier, sample) each, and its
-#: [cchunk, n, A, A] output sizes the block. The smallest value within 2% of
-#: the fastest of 1, 2, 4, 8 and 16 on a wide 160-allele model on an H100
-#: (CHANGES.md)
+#: classifiers per launch of the scan engine's scoring kernel (in S mode
+#: its [cchunk, n, A, A] output sizes the block). The smallest value within
+#: 2% of the fastest of 1, 2, 4, 8 and 16 on a wide 160-allele model on an
+#: H100, in S mode (CHANGES.md)
 SCAN_CCHUNK = 8
 
 
-def _one_classifier_fn(geno_codes, snp_weight, n_alleles, vote, acc_dt):
-    """Per-chunk closure of the scan engine.
+def _one_classifier_fn(geno_codes, snp_weight, n_alleles, vote, acc_dt, ens,
+                       wsum, fused):
+    """Per-chunk closure of the scan engine, adding each chunk's weighted
+    posteriors into ens [n,A,A] and its weights into wsum [n] in place.
 
-    Returns a function (scores, sidx) -> (contrib [n,A,A] summed over the
-    chunk, wadd [n], log_match [cc,n], w [cc,n]) for a chunk of cc
-    classifiers with SNP slots sidx [cc, L], where scores(g) gives their
-    (S [cc,n,A,A], dmin [cc,n], total [cc,n]) from the gathered codes g int8
-    [cc, n, L]. S is overwritten in place. Traced as ``predict.fold``
-    from the scores' return on.
+    Returns a function (part, sidx) -> (log_match [cc,n], w [cc,n]) for a
+    chunk of cc classifiers with SNP slots sidx [cc, L]. With `fused`
+    (vote="prob" in float32), part is the chunk's
+    PackedHaplotypes and the scoring kernel's fold mode adds into ens
+    (ops.post_scores.fold_scores); else part(g) gives the chunk's (S
+    [cc,n,A,A], dmin [cc,n], total [cc,n]) from the gathered codes g int8
+    [cc, n, L], folded here (S is overwritten in place). Traced as
+    ``predict.fold`` from the scores' return on.
     """
     A = n_alleles
 
-    def one_chunk(scores, sidx):
+    def one_chunk(part, sidx):
         g, w = _gather_codes(sidx, snp_weight, geno_codes, acc_dt)
-        S, dmin, total = scores(g)
+        if fused:
+            dmin, total = fold_scores(part, g, w, A, ens)
+        else:
+            S, dmin, total = part(g)
         with trace.span("predict.fold", geno_codes.device):
-            Q = unordered_from_S(S, inplace=True)
             log_match = _log_match(w, total, dmin)
             if vote == "prob":
-                scale = w / total.clamp_min(1e-30)
-                contrib = Q.mul_(scale[..., None, None])
-                wadd = w.sum(0)
+                if not fused:
+                    fold_into(ens, S, total, w)
+                wsum.add_(w.sum(0))
             else:
                 cc, n = w.shape
-                contrib = majority_hits(Q.reshape(cc * n, A, A)).reshape(
+                Q = unordered_from_S(S, inplace=True)
+                hits = majority_hits(Q.reshape(cc * n, A, A)).reshape(
                     cc, n, A, A) * (w > 0)[..., None, None]
-                wadd = (w > 0).to(acc_dt).sum(0)
-            return contrib.sum(0), wadd, log_match, w
+                ens.add_(hits.sum(0))
+                wsum.add_((w > 0).to(acc_dt).sum(0))
+            return log_match, w
 
     return one_chunk
 
 
 def _chunk_scores(hap, c0, c1, n_alleles, f64):
-    """scores(g) of classifiers c0..c1-1 for _one_classifier_fn: one launch
-    of the scoring kernel (ensemble_scores) or, with f64,
+    """scores(g) of classifiers c0..c1-1 for _one_classifier_fn's S mode:
+    one launch of the scoring kernel (ensemble_scores) or, with f64,
     ops.scoring.posterior_scores in float64 classifier by classifier."""
     A = n_alleles
     if f64:
@@ -129,23 +139,30 @@ def _scan_raw(hap, snp_index, snp_weight, geno_codes, n_alleles,
     may hold fewer classifiers. Returns ens [n,A,A] (the weighted sum over
     the classifiers, symmetric unordered convention), wsum [n], log_match
     [C,n], w [C,n]. Traced as a ``predict.scan`` span and a
-    ``predict.scan_chunks`` count per chunk.
+    ``predict.scan_chunks`` count per chunk, and a ``predict.scan_fused``
+    count per chunk folded in the kernel.
     """
     n, A = geno_codes.shape[0], n_alleles
     C = snp_index.shape[0]
+    dev = geno_codes.device
     acc_dt = torch.float64 if f64 else torch.float32
-    one_chunk = _one_classifier_fn(geno_codes, snp_weight, A, vote, acc_dt)
-    ens = torch.zeros((n, A, A), dtype=acc_dt, device=geno_codes.device)
-    wsum = torch.zeros((n,), dtype=acc_dt, device=geno_codes.device)
+    # the kernel folds the probability vote in float32; the majority vote
+    # (each classifier's argmax of Q) and float64 fold S in torch ops
+    fused = vote == "prob" and not f64
+    ens = torch.zeros((n, A, A), dtype=acc_dt, device=dev)
+    wsum = torch.zeros((n,), dtype=acc_dt, device=dev)
+    one_chunk = _one_classifier_fn(geno_codes, snp_weight, A, vote, acc_dt,
+                                   ens, wsum, fused)
     log_match, ws = [], []
     for c0 in range(0, C, cchunk):
         c1 = min(c0 + cchunk, C)
-        with trace.span("predict.scan", geno_codes.device):
+        with trace.span("predict.scan", dev):
             trace.count("predict.scan_chunks")
-            contrib, wadd, lm, w = one_chunk(
-                _chunk_scores(hap, c0, c1, A, f64), snp_index[c0:c1])
-            ens += contrib
-            wsum += wadd
+            if fused:
+                trace.count("predict.scan_fused")
+            part = (hap.subset(c0, c1) if fused
+                    else _chunk_scores(hap, c0, c1, A, f64))
+            lm, w = one_chunk(part, snp_index[c0:c1])
         log_match.append(lm)
         ws.append(w)
     return ens, wsum, torch.cat(log_match), torch.cat(ws)
@@ -286,18 +303,22 @@ def _pack_stats(ens, wsum, log_match, w, response=False):
 
 
 def _default_block(N, C, A, Hm, device, ens=True, cchunk=SCAN_CCHUNK,
-                   f64=False) -> int:
+                   f64=False, fused=False) -> int:
     """Samples per block from the device's memory: an eighth of the card's
     memory (256 MiB on the CPU) over a per-sample bound of the block's
     intermediates — gathered codes and weights of the classifiers in flight
     (all C for the ensemble kernel, `cchunk` for the scan engine), the
     [n, A, A] posteriors, the scan engine's [cchunk, n, A, A] scores and
-    their products, and, where plain versions run (the CPU, and float64 on
-    any device), their [n, H, H] distance tensors."""
+    their products (on a card in float32 with `fused`, the fold mode's
+    scratch of 10 bytes a cell instead: post_scores.fold_plan), and, where
+    plain versions run (the CPU, and float64 on any device), their
+    [n, H, H] distance tensors."""
     k = C if ens else min(cchunk, C)
     per_sample = k * (8 * MAXNUM_SNP + 24) + 16 * A * A
     if not ens:
-        per_sample += 12 * k * A * A
+        per_sample += (5 * A * (A + 1)
+                       if fused and not f64 and device.type == "cuda"
+                       else 12 * k * A * A)
     if device.type != "cuda" or f64:
         per_sample += (64 if f64 else 32) * Hm * Hm
     if device.type == "cuda":
@@ -415,7 +436,7 @@ def predict(model: AttrBagModel, data, vote: str = "prob",
                                                   same_strand)
         with trace.span("predict.prepare", dev):
             prep = _prepare(model, codes, mesh, dev, hap_bucket, engine,
-                            f64, block)
+                            f64, block, vote)
         out = _run_blocks(prep, codes.shape[0], model.n_alleles, vote,
                           not with_prob, f64, verbose)
         with trace.span("predict.finalize", dev):
@@ -458,7 +479,8 @@ class _Prepared:
     dev: torch.device
 
 
-def _prepare(model, codes, mesh, dev, hap_bucket, engine, f64, block):
+def _prepare(model, codes, mesh, dev, hap_bucket, engine, f64, block,
+             vote):
     """The model packed (memoized), the ensemble in the kernels' layout on
     each device, the block size and the cohort's host-to-device copy."""
     packed = model.pack(hap_bucket=hap_bucket,
@@ -491,7 +513,8 @@ def _prepare(model, codes, mesh, dev, hap_bucket, engine, f64, block):
             post_scores.check_limits(Hm, A)
     sw = torch.from_numpy(packed.snp_weight.astype(np.int32)).to(dev)
     if block is None:
-        block = _default_block(N, C, A, Hm, dev, use_ens, SCAN_CCHUNK, f64)
+        block = _default_block(N, C, A, Hm, dev, use_ens, SCAN_CCHUNK, f64,
+                               vote == "prob")
     block = max(1, min(block, N))
 
     codes = np.ascontiguousarray(codes)

@@ -143,6 +143,14 @@ def _load() -> ctypes.CDLL:
     lib.hibag_post_scores.restype = i
     lib.hibag_post_scores_smem.argtypes = [i] * 3
     lib.hibag_post_scores_smem.restype = ctypes.c_longlong
+    lib.hibag_post_scores_fold.argtypes = [p] * 12 + [i] * 5 + [p] * 3
+    lib.hibag_post_scores_fold.restype = i
+    lib.hibag_post_scores_fold_smem.argtypes = [i] * 3
+    lib.hibag_post_scores_fold_smem.restype = ctypes.c_longlong
+    lib.hibag_post_scores_fold_scratch.argtypes = [i]
+    lib.hibag_post_scores_fold_scratch.restype = ctypes.c_longlong
+    lib.hibag_post_scores_blocks_per_sm.argtypes = [i] * 4
+    lib.hibag_post_scores_blocks_per_sm.restype = i
     lib.hibag_post_scores_scratch.argtypes = [i]
     lib.hibag_post_scores_scratch.restype = ctypes.c_longlong
     lib.hibag_match_pairs.argtypes = [p] * 7 + [i] * 6 + [p] * 3

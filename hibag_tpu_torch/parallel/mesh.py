@@ -308,8 +308,8 @@ def sharded_predict(mesh: EnsembleMesh, shards: list, replicas: list,
     shards: shard_ensemble(mesh, (hap_bits [C,Hm,L], hap_freq [C,Hm],
     hap_allele [C,Hm], snp_index [C,L])); replicas: replicate(mesh,
     (snp_weight [P], geno_codes [N,P])). Each shard scores its classifiers
-    with the scoring kernel (ops/post_scores.py::ensemble_scores on a card,
-    its plain version on the CPU), SCAN_CCHUNK at a time; the weighted
+    with the scoring kernel's fold mode (ops/post_scores.py::fold_scores on
+    a card, its plain version on the CPU), SCAN_CCHUNK at a time; the weighted
     posteriors and weights are summed over the shards in mesh order
     (models/predict.py::_predict_block_mesh, the scan engine). Returns (ens [N,A,A] weight-normalised, wsum [N]) on mesh.devices[0].
     """

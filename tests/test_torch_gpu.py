@@ -19,7 +19,7 @@ import pytest
 import torch
 
 import chip_smoke
-from hibag_tpu_torch.ops import ens_acc, post_scores
+from hibag_tpu_torch.ops import _build, ens_acc, post_scores
 from hibag_tpu_torch.ops import train_step as ts
 
 
@@ -168,6 +168,81 @@ def test_scores_kernel_het_patterns_and_dominant_allele(cuda, C, H, A,
     hap, g, tie = chip_smoke._score_case(np.random.default_rng(C + H + A),
                                          C, H, A, 4, cuda, pattern, dominant)
     chip_smoke._check_scores(hap, g, A, f"{pattern} dominant={dominant}", tie)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,H,A,N,shared", [
+    (8, 1216, 160, 512, True), (8, 1216, 160, 512, False),
+    (4, 1216, 160, 512, True), (8, 1216, 200, 256, True),
+    (8, 1216, 200, 256, False), (8, 640, 1024, 16, True),
+    (1, 600, 160, 64, True)])
+def test_fold_mode_matches_s_mode_and_plain_fold(cuda, C, H, A, N, shared):
+    """The scoring kernel's fold mode at the wide locus's shapes (a chunk
+    of 8, an uneven chunk of 4, past 180 alleles, at 1,024 alleles, one
+    classifier), slot
+    records in shared and in device memory, through chip_smoke._check_fold:
+    dmin and total bitwise the S mode's, two runs bitwise equal, ens within
+    1e-6 of the S mode plus the plain fold and within 2e-4 of the plain
+    version (fold_scores_ref)."""
+    rng = np.random.default_rng(C + H + A)
+    hap, g, _ = chip_smoke._score_case(rng, C, H, A, N, cuda)
+    w = torch.from_numpy(rng.random((C, N)).astype(np.float32)).to(cuda)
+    lib = _build.load()
+    route = post_scores.fold_plan(H, A, N, lib.hibag_post_scores_fold_smem,
+                                  lib.hibag_post_scores_fold_scratch)
+    assert route == (True, N, 0)
+    if not shared:
+        route = (False, 64, 64 * post_scores.record_bytes(H))
+    before = post_scores.LAUNCHES
+    chip_smoke._check_fold(hap, g, w, A, f"C={C} H={H} A={A}", route)
+    assert post_scores.LAUNCHES == before + 3
+
+
+@pytest.mark.gpu
+def test_scan_engine_folds_in_the_kernel(cuda):
+    """predict() of a 100-classifier model past the ensemble kernel's
+    alleles: with the probability vote every chunk of 8 takes the fold mode
+    (13 launches a call, each launch record marked fold=1, counter
+    predict.scan_fused equal to predict.scan_chunks); the majority vote
+    takes the S mode (fold=0, scan_fused 0) and float64 launches nothing;
+    the answers are the CPU's plain versions'."""
+    from hibag_tpu_torch import predict
+    from hibag_tpu_torch.utils import trace
+    from hibag_tpu_torch.utils.synthetic import (synthetic_cohort,
+                                                 synthetic_model)
+
+    model, pool = synthetic_model(9, n_classifiers=100, n_snp=300,
+                                  n_alleles=160, snp_range=(20, 40),
+                                  hap_range=(200, 400), max_variants=5)
+    geno, t1, t2 = synthetic_cohort(model, pool, 96, 9)
+    got = {}
+    for vote, dtype in (("prob", np.float32), ("majority", np.float32),
+                        ("prob", np.float64)):
+        trace.reset()
+        trace.enable()
+        try:
+            before = post_scores.LAUNCHES
+            res = predict(model, geno, device="cuda", vote=vote, dtype=dtype,
+                          with_prob=True)
+            counters = trace.summary()["counters"]
+            folds = [r["dims"]["fold"] for r in trace.snapshot()["launches"]
+                     if r["name"] == "post_scores"]
+        finally:
+            trace.disable()
+            trace.reset()
+        got[vote, dtype] = (res, post_scores.LAUNCHES - before, folds,
+                            counters.get("predict.scan_fused", 0),
+                            counters["predict.scan_chunks"])
+    res, launched, folds, fused, chunks = got["prob", np.float32]
+    assert launched == chunks == fused == 13 and folds == [1] * 13
+    _, launched, folds, fused, chunks = got["majority", np.float32]
+    assert launched == chunks == 13 and fused == 0 and folds == [0] * 13
+    _, launched, folds, fused, _ = got["prob", np.float64]
+    assert launched == fused == 0 and folds == []
+    cpu = predict(model, geno, device="cpu", with_prob=True)
+    np.testing.assert_allclose(res.postprob, cpu.postprob, rtol=3e-4,
+                               atol=1e-7)
+    assert res.accuracy_vs(t1, t2) > 0.9
 
 
 @pytest.mark.gpu

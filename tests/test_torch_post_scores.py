@@ -23,6 +23,7 @@ from hibag_tpu_torch.models import predict as port_predict
 from hibag_tpu_torch.models.convert import (classifier_from_jax_prepared,
                                             ensemble_from_jax_prepared)
 from hibag_tpu_torch.ops import ens_acc, post_scores
+from hibag_tpu_torch.utils import trace
 from hibag_tpu_torch.utils.synthetic import synthetic_cohort, synthetic_model
 from test_torch_ens_acc import _inputs
 from test_torch_scoring import _classifier
@@ -176,6 +177,111 @@ def test_predict_block_matches_hibag_tpu(cchunk, vote):
                                atol=1e-7)
     np.testing.assert_allclose(lm.numpy(), np.asarray(lm_j), rtol=1e-3,
                                atol=1e-3)
+
+
+def _traced(fn):
+    """fn()'s result and the counters it recorded, with tracing on."""
+    trace.reset()
+    trace.enable()
+    try:
+        out = fn()
+        return out, trace.summary()["counters"]
+    finally:
+        trace.disable()
+        trace.reset()
+
+
+def _fold_smem(H, A, records):
+    """csrc/post_scores.cu::fold_smem_bytes: the slot records (24 bytes a
+    slot, unless in device memory), the penalty table and the allele
+    starts."""
+    return 24 * H * records + 4096 + 4 * (A + 1)
+
+
+def _fold_scratch(A):
+    """csrc/post_scores.cu::hibag_post_scores_fold_scratch: each cell's
+    value and running sum (floats) and minimum (an unsigned short), padded
+    to whole floats."""
+    ntri = A * (A + 1) // 2
+    return 4 * (2 * ntri + (ntri + 1) // 2)
+
+
+@pytest.mark.parametrize("A,C", [(160, 16), (200, 8), (160, 11)])
+def test_fold_route_matches_the_s_path_and_fold(A, C):
+    """The scan engine's fold route (vote="prob", float32: the scoring
+    kernel's fold mode, here its plain version) at wide loci, past the S
+    mode's shared running minima (A=200) and with an uneven last chunk
+    (C=11): every chunk counted as fused, and ens, wsum, log_match and w
+    within 1e-6 of the S path and the fold it replaced, written out."""
+    hb, hf, ha, si, sw, geno, _ = _scan_inputs(21 + C, C=C, H=48, A=A, n=6)
+    hap = ens_acc.pack_haplotypes(hb, hf, ha, A, "cpu")
+    si, sw, geno = map(torch.from_numpy, (si, sw, geno))
+    (ens, wsum, lm, w), counts = _traced(
+        lambda: port_predict._scan_raw(hap, si, sw, geno, A, "prob"))
+    chunks = -(-C // port_predict.SCAN_CCHUNK)
+    assert counts["predict.scan_fused"] == counts["predict.scan_chunks"] \
+        == chunks
+    want = torch.zeros_like(ens)
+    for c0 in range(0, C, port_predict.SCAN_CCHUNK):
+        c1 = min(c0 + port_predict.SCAN_CCHUNK, C)
+        g, wc = port_predict._gather_codes(si[c0:c1], sw, geno)
+        S, dmin, total = post_scores.ensemble_scores(hap.subset(c0, c1), g,
+                                                     A)
+        Q = S * (2.0 - torch.eye(A))
+        want += (Q * (wc / total.clamp_min(1e-30))[..., None, None]).sum(0)
+        np.testing.assert_allclose(
+            lm[c0:c1].numpy(), port_predict._log_match(wc, total, dmin),
+            rtol=1e-6)
+    assert want.abs().sum() > 0
+    np.testing.assert_allclose(ens.numpy(), want.numpy(), rtol=1e-6, atol=0)
+    np.testing.assert_allclose(wsum.numpy(), w.sum(0).numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("route", ["majority", "float64", "one classifier"])
+def test_s_mode_routes(route, monkeypatch):
+    """The majority vote (each classifier's argmax of Q), float64 and one
+    classifier (posterior_scores_kernel, classifier_posteriors) keep the
+    S mode: no chunk is fused and the fold mode is never entered."""
+    def no_fold(*a, **k):
+        raise AssertionError("the fold mode was entered")
+
+    monkeypatch.setattr(post_scores, "fold_scores", no_fold)
+    monkeypatch.setattr(port_predict, "fold_scores", no_fold)
+    A = 9
+    hb, hf, ha, si, sw, geno, _ = _scan_inputs(31, A=A)
+    si, sw, geno = map(torch.from_numpy, (si, sw, geno))
+    if route == "one classifier":
+        bits, freq, allele, g, A = _classifier(0)
+        got = post_scores.classifier_posteriors(
+            torch.from_numpy(bits), torch.from_numpy(freq),
+            torch.from_numpy(allele), torch.from_numpy(g), A)
+        assert tuple(got["S"].shape) == (g.shape[0], A, A)
+        return
+    if route == "majority":
+        hap = ens_acc.pack_haplotypes(hb, hf, ha, A, "cpu")
+        vote, f64 = "majority", False
+    else:
+        hap = (torch.from_numpy(hb), torch.from_numpy(hf).double(),
+               torch.from_numpy(ha))
+        vote, f64 = "prob", True
+    (ens, wsum, _, _), counts = _traced(lambda: port_predict._scan_raw(
+        hap, si, sw, geno, A, vote, cchunk=3, f64=f64))
+    assert counts["predict.scan_chunks"] == 2
+    assert "predict.scan_fused" not in counts
+    assert float(wsum.sum()) > 0 and float(ens.sum()) > 0
+
+
+@pytest.mark.parametrize("H,A,N,want", [
+    (1197, 160, 3840, (True, 3840, 0)),  # hla_b-predict: records shared
+    (4096, 160, 1024, (False, 1024, 1024 * 98304)),  # records past 56 KB
+    (1197, 200, 3840, (True, 2670, 0)),  # scratch past FOLD_SCRATCH_BYTES
+    (640, 1024, 96, (True, 96, 0))])     # the kernel's widest alleles
+def test_fold_plan(H, A, N, want):
+    """fold_plan's route: the slot records in shared memory where they
+    leave room for four blocks an SM, else in device memory;
+    one block a sample where FOLD_SCRATCH_BYTES holds their scratch, else
+    as many blocks as it holds (each then takes several samples)."""
+    assert post_scores.fold_plan(H, A, N, _fold_smem, _fold_scratch) == want
 
 
 @pytest.fixture(scope="module")

@@ -122,9 +122,13 @@ def wide(request):
 def test_scan_engine_traced_and_matches_the_reference(wide):
     """engine="auto" past the ensemble kernel's range: one predict.scan
     span holding one predict.fold span and one predict.scan_chunks count
-    per chunk of SCAN_CCHUNK classifiers and block, and the calls,
-    probabilities and matching of the float64 reference within the
-    hla_b-predict cell's limits."""
+    per chunk of SCAN_CCHUNK classifiers and block, every chunk counted in
+    predict.scan_fused (the probability vote folds in the scoring kernel's
+    fold mode) and none under the majority vote, which still records its
+    predict.fold spans; and the calls, probabilities and matching of the
+    float64 reference within the hla_b-predict cell's limits. (On a card
+    the post_scores launch records carry the mode as dims["fold"]:
+    tests/test_torch_gpu.py::test_scan_engine_folds_in_the_kernel.)"""
     m, geno = wide
     model, data = _port(m, geno)
     trace.enable()
@@ -139,7 +143,17 @@ def test_scan_engine_traced_and_matches_the_reference(wide):
                                                         for s in scans)
     blocks = {s["id"] for s in snap["spans"] if s["name"] == "predict.block"}
     assert all(s["parent"] in blocks for s in scans)
-    assert trace.summary(snap)["counters"]["predict.scan_chunks"] == chunks
+    counters = trace.summary(snap)["counters"]
+    assert counters["predict.scan_chunks"] == chunks
+    assert counters["predict.scan_fused"] == chunks
+
+    trace.reset()
+    ht.predict(model, data, device="cpu", block=BLOCK, vote="majority")
+    snap = trace.snapshot()
+    counters = trace.summary(snap)["counters"]
+    assert counters["predict.scan_chunks"] == chunks
+    assert counters.get("predict.scan_fused", 0) == 0
+    assert sum(s["name"] == "predict.fold" for s in snap["spans"]) == chunks
 
     codes = ref.align(m["snp_position"], m["snp_position"], geno)
     want = ref.predict(m, codes, "cpu")
